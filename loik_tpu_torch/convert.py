@@ -1,0 +1,86 @@
+"""Carry trees, problems and solver states across from `loik_tpu`.
+
+The arguments are the JAX package's objects, taken duck-typed: every array
+leaf goes through `np.asarray` and static fields are copied, so this module
+(like the whole package) never imports jax.  The tests use it so that both
+packages compute on the same tree, problem and warm state; `state_to_numpy`
+goes the other way for comparisons.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .model.tree import KinematicTree
+from .problem import IkProblem
+from .solver.state import SolverState
+
+_EXACT_DTYPES = {np.dtype(bool): torch.bool, np.dtype(np.int32): torch.int32}
+
+
+def _tensor(x, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    a = np.array(x)  # a writable copy (jax arrays export read-only buffers)
+    if a.dtype in _EXACT_DTYPES:
+        return torch.as_tensor(a, dtype=_EXACT_DTYPES[a.dtype], device=device)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def tree_from_arrays(tree, device="cpu", dtype: Optional[torch.dtype] = None) -> KinematicTree:
+    """A port tree from a `loik_tpu` KinematicTree (same topology, leaves,
+    joint codes).  Trees the port cannot represent raise (joint types other
+    than revolute/prismatic, universal/mimic extras)."""
+    for extra in ("axis2", "pitches", "mimic", "placement2_R", "placement2_p"):
+        if getattr(tree, extra, None) is not None:
+            raise NotImplementedError(
+                f"tree '{tree.name}' uses {extra}: not ported yet "
+                "(ROADMAP queue 1 item 7)")
+    return KinematicTree(
+        placement_R=_tensor(tree.placement_R, device, dtype),
+        placement_p=_tensor(tree.placement_p, device, dtype),
+        axis=_tensor(tree.axis, device, dtype),
+        velocity_limit=_tensor(tree.velocity_limit, device, dtype),
+        parents=tuple(int(p) for p in tree.parents),
+        jtypes=tuple(int(t) for t in tree.jtypes),
+        idx_v=tuple(int(i) for i in tree.idx_v),
+        idx_q=tuple(int(i) for i in tree.idx_q),
+        joint_names=tuple(tree.joint_names),
+        name=tree.name,
+    )
+
+
+def problem_from_arrays(problem, device="cpu",
+                        dtype: Optional[torch.dtype] = None) -> IkProblem:
+    """A port IkProblem from a `loik_tpu` IkProblem."""
+    return IkProblem(
+        H_ref=_tensor(problem.H_ref, device, dtype),
+        v_ref=_tensor(problem.v_ref, device, dtype),
+        A=_tensor(problem.A, device, dtype),
+        b=_tensor(problem.b, device, dtype),
+        lb=_tensor(problem.lb, device, dtype),
+        ub=_tensor(problem.ub, device, dtype),
+        constraint_links=tuple(int(c) for c in problem.constraint_links),
+    )
+
+
+def state_from_arrays(state, device="cpu",
+                      dtype: Optional[torch.dtype] = None) -> SolverState:
+    """A port SolverState from a `loik_tpu` SolverState: every field the
+    port has, bool and int32 fields kept exact, floating fields in
+    ``dtype`` (default: as given).  Per-iteration logs are not carried."""
+    vals = {}
+    for f in dataclasses.fields(SolverState):
+        x = getattr(state, f.name, None)
+        if f.name.startswith("log_") or x is None:
+            continue
+        vals[f.name] = _tensor(x, device, dtype)
+    return SolverState(**vals)
+
+
+def state_to_numpy(st: SolverState) -> Dict[str, np.ndarray]:
+    """Every non-None field of a port state as a numpy array."""
+    return {f.name: getattr(st, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(st) if getattr(st, f.name) is not None}

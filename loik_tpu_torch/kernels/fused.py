@@ -1,0 +1,305 @@
+"""The fused ADMM solve loop: one CUDA kernel runs the whole masked loop.
+
+Port of `loik_tpu.kernels.fused`.  The TPU version ran `make_loop_body`
+inside one Pallas kernel over tiles of the batch; here
+`csrc/fused_admm.cu` runs the same loop body per problem, one thread per
+problem, with each problem leaving the loop at its own iteration.
+
+`fused_solve_loop` launches the kernel for CUDA tensors.  For CPU tensors
+it runs the plain PyTorch loop (`solver.solve._solve_loop`), the twin the
+kernel is checked against — the port's analog of Pallas `interpret=True`.
+A build or launch failure raises; it is never turned into the eager loop.
+
+Preconditions of the kernel (`fused_eligibility` names the first one a call
+breaks): no logging, no verbose, float32 on the public path (the kernel
+also has a float64 instantiation, reachable through `fused_solve_loop`),
+1-dof joints (nv_max == 1), at most MAX_JOINTS joints and MAX_CONSTRAINTS
+constraints, and 1..1024 threads per block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import warnings
+from typing import Optional
+
+import torch
+
+from ..params import SolverParams
+from ..problem import IkProblem, validate_problem
+from ..solver.solve import _as_batch, _solve_impl, _solve_loop
+from ..solver.state import PreparedProblem, SolverState, SolveResult
+
+# compile-time caps of csrc/fused_admm.cu (LOIK_MAX_JOINTS /
+# LOIK_MAX_CONSTRAINTS); checked against the built library at first launch
+MAX_JOINTS = 16
+MAX_CONSTRAINTS = 8
+
+# number of kernel launches in this process: a run can read it to show that
+# its main path went through the kernel
+LAUNCHES = 0
+
+# state fields that the kernel writes (everything except liMi and the logs),
+# in the order of the kernel's pointer array (csrc/fused_admm.cu::LoikPtr)
+_STATE_FIELDS = (
+    "vis", "fis", "nu", "z", "w", "yis", "Aty", "fdpa", "stfw",
+    "mu", "mu_eq", "mu_ineq", "iterations", "tail_iterations",
+    "converged", "primal_infeasible", "dual_infeasible", "in_tail",
+    "running", "primal_residual", "dual_residual", "delta_x_inf",
+    "delta_z_inf", "it",
+)
+_PROB_FIELDS = ("H_ref", "Hv", "A", "b", "AtA", "Atb", "lb", "ub", "b_inf", "Hv_inf")
+_OPTIONAL_FIELDS = ("r_offset", "tol_scale_primal", "tol_scale_dual")
+_FIELD_DTYPES = {
+    "iterations": torch.int32, "tail_iterations": torch.int32,
+    "converged": torch.bool, "primal_infeasible": torch.bool,
+    "dual_infeasible": torch.bool, "in_tail": torch.bool, "running": torch.bool,
+    "it": torch.int32,
+}
+# state fields, problem fields, optional fields, liMi_R, liMi_p, input `it`
+_N_PTRS = len(_STATE_FIELDS) + len(_PROB_FIELDS) + len(_OPTIONAL_FIELDS) + 3
+
+
+class _LoikConfig(ctypes.Structure):
+    """csrc/fused_admm.cu::LoikConfig, field for field."""
+
+    _fields_ = [
+        ("B", ctypes.c_int), ("N", ctypes.c_int), ("NC", ctypes.c_int),
+        ("threads", ctypes.c_int),
+        ("max_iter", ctypes.c_int), ("check_interval", ctypes.c_int),
+        ("check_feasibility", ctypes.c_int), ("tail_solve", ctypes.c_int),
+        ("parents", ctypes.c_int * MAX_JOINTS),
+        ("clinks", ctypes.c_int * MAX_CONSTRAINTS),
+        ("S", (ctypes.c_double * 6) * MAX_JOINTS),
+        ("rho", ctypes.c_double), ("tol_abs", ctypes.c_double),
+        ("tol_rel", ctypes.c_double), ("tol_primal_inf", ctypes.c_double),
+        ("tol_tail_solve", ctypes.c_double), ("mu_eq_scale", ctypes.c_double),
+    ]
+
+
+_LAUNCH_ARGTYPES = [ctypes.POINTER(_LoikConfig), ctypes.POINTER(ctypes.c_void_p),
+                    ctypes.c_int, ctypes.c_void_p]
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, with its C signatures declared and its
+    compile-time layout checked against this wrapper."""
+    from . import _build
+
+    lib = _build.load()
+    for name in ("loik_fused_admm_f32", "loik_fused_admm_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = _LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.loik_fused_admm_abi.restype = None
+    lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.loik_cuda_error_string.restype = ctypes.c_char_p
+    abi = [ctypes.c_int() for _ in range(4)]
+    lib.loik_fused_admm_abi(*[ctypes.byref(x) for x in abi])
+    want = (MAX_JOINTS, MAX_CONSTRAINTS, _N_PTRS, ctypes.sizeof(_LoikConfig))
+    if tuple(x.value for x in abi) != want:
+        raise RuntimeError(
+            f"kernel library layout {tuple(x.value for x in abi)} (max joints, "
+            f"max constraints, pointers, config bytes) does not match the "
+            f"wrapper's {want}"
+        )
+    return lib
+
+
+# one warning per distinct (call-site, reason): the eager loop is far slower
+# than the kernel on the GPU — a cliff users must be told about, once
+_fallback_warned: set = set()
+
+
+def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
+                      dtype=None, num_constraints: int = 1):
+    """Why-not report for the fused kernel.
+
+    Returns ``(eligible, reason)``: eligible=True means the kernel can run on
+    this call shape; otherwise ``reason`` names the first blocker in plain
+    words.  ``dtype=None`` skips the float32 check (the delta-duals path
+    casts to float32 internally, so its stages fuse whatever the caller's
+    q dtype).  The device is not a condition: on CPU tensors the fused path
+    is the eager loop.  The batch need not divide by ``batch_tile``: the
+    kernel masks the ragged last block.
+
+    loik_tpu also refuses configuration-dependent motion subspaces and
+    per-problem ``S_all``; neither can reach this package yet (its tree
+    admits only constant-subspace joints and its PreparedProblem has no
+    ``S_all``), and they come back with ROADMAP queue 1 items 7 and 9."""
+    if params.logging:
+        return False, ("params.logging is set — the fused kernel has no "
+                       "per-iteration log arrays")
+    if params.verbose:
+        return False, ("params.verbose is set — the fused kernel prints "
+                       "nothing per iteration")
+    if dtype is not None and dtype != torch.float32:
+        return False, (f"dtype {dtype} != torch.float32 (the public fused "
+                       "path is float32; use the delta-duals refinement for "
+                       "tight tolerances)")
+    if tree.nv_max > 1:
+        return False, (f"joints with {tree.nv_max} dofs: the kernel handles "
+                       "1-dof joints only (scalar D = S'HS + mu; ROADMAP "
+                       "queue 2 K5)")
+    if tree.njoints > MAX_JOINTS:
+        return False, (f"{tree.njoints} joints exceed the kernel's cap of "
+                       f"{MAX_JOINTS} (LOIK_MAX_JOINTS)")
+    if num_constraints > MAX_CONSTRAINTS:
+        return False, (f"{num_constraints} constraints exceed the kernel's "
+                       f"cap of {MAX_CONSTRAINTS} (LOIK_MAX_CONSTRAINTS)")
+    if not 1 <= batch_tile <= 1024:
+        return False, (f"batch_tile {batch_tile} is not a CUDA block size "
+                       "(1..1024 threads)")
+    return True, None
+
+
+def resolve_fused(fused, tree, params: SolverParams, B: int, batch_tile: int,
+                  dtype=None, where: str = "solve",
+                  num_constraints: int = 1) -> bool:
+    """Resolve a user ``fused=`` request (None | bool | 'require') to a bool.
+
+    None (auto): eligible shapes fuse; an ineligible shape warns ONCE per
+    (call-site, reason) naming the blocker, and runs the eager loop.
+    'require': raise with the reason instead of degrading.  True/False:
+    forced by the caller (the kernel wrapper still validates its hard
+    preconditions)."""
+    if fused == "require":
+        ok, reason = fused_eligibility(tree, params, B, batch_tile, dtype,
+                                       num_constraints)
+        if not ok:
+            raise ValueError(
+                f"{where}: fused='require' but the fused kernel cannot run "
+                f"here: {reason}"
+            )
+        return True
+    if fused is None:
+        ok, reason = fused_eligibility(tree, params, B, batch_tile, dtype,
+                                       num_constraints)
+        if not ok:
+            key = (where, reason)
+            if key not in _fallback_warned:
+                _fallback_warned.add(key)
+                warnings.warn(
+                    f"{where}: running the eager PyTorch loop instead of the "
+                    f"fused kernel: {reason}. Pass fused=False to silence or "
+                    f"fused='require' to fail instead.",
+                    stacklevel=3,
+                )
+        return ok
+    return bool(fused)
+
+
+def _launch(tree, params: SolverParams, prob: PreparedProblem,
+            st: SolverState, batch_tile: int) -> SolverState:
+    """Launch the kernel on clones of the state; returns the final state."""
+    global LAUNCHES
+    dtype, dev = st.vis.dtype, st.vis.device
+    B = st.vis.shape[-1]
+    N, NC = tree.njoints, len(prob.constraint_links)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the fused kernel takes float32 or float64, got {dtype}")
+    lib = _library()
+
+    def operand(name, x, want_dtype):
+        if x.device != dev or x.dtype != want_dtype:
+            raise ValueError(
+                f"fused kernel operand {name}: {x.dtype} on {x.device}, "
+                f"expected {want_dtype} on {dev}")
+        return x.contiguous()
+
+    # the kernel updates these clones in place
+    out = {n: operand(n, getattr(st, n), _FIELD_DTYPES.get(n, dtype)).clone()
+           for n in _STATE_FIELDS}
+    inputs = [operand(n, getattr(prob, n), dtype) for n in _PROB_FIELDS]
+    inputs += [None if getattr(prob, n) is None else operand(n, getattr(prob, n), dtype)
+               for n in _OPTIONAL_FIELDS]
+    inputs += [operand("liMi_R", st.liMi_R, dtype), operand("liMi_p", st.liMi_p, dtype),
+               operand("it", st.it, torch.int32)]
+    tensors = [out[n] for n in _STATE_FIELDS] + inputs
+    ptrs = (ctypes.c_void_p * _N_PTRS)(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+    cfg = _LoikConfig(
+        B=B, N=N, NC=NC, threads=batch_tile, max_iter=params.max_iter,
+        check_interval=params.check_interval,
+        check_feasibility=int(params.check_feasibility),
+        tail_solve=int(params.tail_solve),
+        rho=params.rho, tol_abs=params.tol_abs, tol_rel=params.tol_rel,
+        tol_primal_inf=params.tol_primal_inf,
+        tol_tail_solve=params.tol_tail_solve,
+        mu_eq_scale=params.mu_equality_scale_factor,
+    )
+    for i, par in enumerate(tree.parents):
+        cfg.parents[i] = par
+    for k, c in enumerate(prob.constraint_links):
+        cfg.clinks[k] = c
+    # S is iteration-constant data: (N, 6) on the host, by value to the kernel
+    S = torch.stack([tree.joint_S(i)[:, 0] for i in range(N)]).double().cpu()
+    for i in range(N):
+        for j in range(6):
+            cfg.S[i][j] = float(S[i, j])
+
+    fn = lib.loik_fused_admm_f32 if dtype == torch.float32 else lib.loik_fused_admm_f64
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(
+            "fused ADMM kernel launch failed: "
+            f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
+    LAUNCHES += 1
+    return dataclasses.replace(st, **out)
+
+
+def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
+                     st: SolverState, batch_tile: Optional[int] = None) -> SolverState:
+    """Run `_solve_loop` as the fused kernel (CUDA tensors) or as the eager
+    loop itself (CPU tensors).  Takes/returns the same trailing-batch state.
+
+    batch_tile: threads per block (default `refine.default_batch_tile`).
+    The kernel masks a ragged last block, so B need not divide by it."""
+    if params.logging:
+        raise ValueError("fused path does not support logging")
+    if params.verbose:
+        raise ValueError("fused path does not support verbose console mode")
+    if batch_tile is None:
+        from ..solver.refine import default_batch_tile
+
+        batch_tile = default_batch_tile(tree.njoints)
+    B = st.vis.shape[-1]
+    ok, reason = fused_eligibility(tree, params, B, batch_tile,
+                                   num_constraints=len(prob.constraint_links))
+    if not ok:
+        raise ValueError(f"fused_solve_loop: {reason}")
+    if st.vis.device.type == "cpu":
+        return _solve_loop(tree, prob, params, st)
+    if st.vis.device.type != "cuda":
+        raise ValueError(f"fused_solve_loop: no kernel for device {st.vis.device}")
+    return _launch(tree, params, prob, st, batch_tile)
+
+
+def _fused_body(params, batch_tile, tree, q, problem, warm_state) -> SolveResult:
+    """The fused solve on a validated (B, nq) q (also stage 1 of
+    refine.solve_delta_duals)."""
+    def loop(tree_, prob_, params_, st_):
+        return fused_solve_loop(tree_, params_, prob_, st_, batch_tile)
+
+    return _solve_impl(tree, params, q, problem, warm_state, loop=loop)
+
+
+def solve_fused(tree, params: SolverParams, q, problem: IkProblem,
+                warm_state: Optional[SolverState] = None,
+                batch_tile: Optional[int] = None) -> SolveResult:
+    """Drop-in variant of `solver.solve` running the fused kernel.
+
+    float32-only, as in loik_tpu: float64 inputs are rejected up front (the
+    float64 path is `solver.solve` or the delta-duals refinement)."""
+    q = _as_batch(tree, q)
+    if q.dtype == torch.float64:
+        raise ValueError(
+            "solve_fused is float32-only; cast inputs to float32 or use "
+            "solver.solve / solve_delta_duals for float64"
+        )
+    validate_problem(tree, problem)
+    return _fused_body(params, batch_tile, tree, q, problem, warm_state)

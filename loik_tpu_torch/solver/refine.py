@@ -1,0 +1,218 @@
+"""Tight-tolerance solve below the float32 floor: the delta-duals refinement.
+
+Port of `loik_tpu.solver.refine.solve_delta_duals`.  Single precision cannot
+certify tol 1e-6 on this problem class: the augmented-Lagrangian penalty
+mu_eq amplifies the Riccati operands to ||H|| ~ 1e2, so float32 iterates
+stall at ~eps_f32 * ||H|| ~ 1e-5.  The delta-duals scheme runs a float32
+stage 1 at a tolerance above that floor, evaluates the KKT residual ONCE in
+float64, and runs the SAME float32 solver on the shifted (delta) problem,
+whose in-loop quantities are O(stage-1 error).  Both float32 stages run the
+fused kernel on the GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..params import SolverParams
+from ..problem import IkProblem, validate_problem
+from . import batched_spatial as bsp
+from .solve import (_as_batch, _flat_nu, _reset_state, _solve_impl,
+                    _solve_loop, full_f32_matmul, kkt_residual,
+                    prepare_problem)
+from .state import SolveResult, SolverState
+
+
+def default_batch_tile(njoints: int) -> int:
+    """Threads per block of the fused kernel.  One thread owns one problem,
+    and at the flagship batch (16384 problems) 128 threads per block give
+    128 blocks: one per SM on a 132-SM H100.  The per-thread working set
+    lives in local memory, so the count does not depend on njoints within
+    the kernel's joint cap."""
+    return 128
+
+
+def _cast_state(st: SolverState, dtype) -> SolverState:
+    """The state with every floating tensor cast to ``dtype``."""
+    upd = {}
+    for f in dataclasses.fields(st):
+        x = getattr(st, f.name)
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            upd[f.name] = x.to(dtype)
+    return dataclasses.replace(st, **upd)
+
+
+def _cast_problem(p: IkProblem, dtype) -> IkProblem:
+    return IkProblem(
+        H_ref=p.H_ref.to(dtype), v_ref=p.v_ref.to(dtype), A=p.A.to(dtype),
+        b=p.b.to(dtype), lb=p.lb.to(dtype), ub=p.ub.to(dtype),
+        constraint_links=p.constraint_links,
+    )
+
+
+def solve_delta_duals(
+    tree,
+    params: SolverParams,
+    q,
+    problem: IkProblem,
+    stage1_tol: float = 2e-5,
+    stage1_max_iter: int = 32,
+    stage2_max_iter: int = 24,
+    stage2_mu: float = 1e-2,
+    stage2_mu_eq_scale: float = 1e5,
+    warm_state: Optional[SolverState] = None,
+    fused=None,
+    batch_tile: Optional[int] = None,
+) -> SolveResult:
+    """Tight-tolerance solve with NO float64 loop: float32 stage 1 + float32
+    delta-duals correction stage.
+
+    Substituting x = x_hat + dx, y = y_hat + dy into the QP's KKT system
+    turns the refinement into the SAME solver run on a shifted problem whose
+    linear terms are the stage-1 KKT residuals, with duals starting at ZERO:
+
+      - nu-block linear term  c = d0_nu = (S'f + w)|_hat   (r_offset)
+      - v-block linear term       d0_v  = (H_ref v - Hv + fdpa)|_hat
+        (folded in as Hv := -d0_v)
+      - task rhs   b_delta  = b - A v_hat
+      - box bounds shifted by nu_hat; z warm-started at z_hat - nu_hat
+
+    d0 is computed ONCE in float64; the delta stage certifies against the
+    ORIGINAL problem's adaptive-tolerance scales (tol_scale floors), with
+    infeasibility certificates off (they are degenerate in delta space).
+
+    fused: kernel policy for both float32 stages (None | True | False |
+    'require', `kernels.fused.resolve_fused`).  Returns results in the
+    original space with a full-space state (warm-startable)."""
+    q = _as_batch(tree, q)
+    validate_problem(tree, problem)
+    if batch_tile is None:
+        batch_tile = default_batch_tile(tree.njoints)
+    from ..kernels.fused import resolve_fused
+
+    fused = resolve_fused(fused, tree, params, q.shape[0], batch_tile,
+                          dtype=None, where="solve_delta_duals",
+                          num_constraints=problem.num_constraints)
+    p1 = params.replace(
+        tol_abs=max(stage1_tol, params.tol_abs),
+        tol_rel=max(stage1_tol, params.tol_rel),
+        max_iter=min(params.max_iter, stage1_max_iter),
+    )
+    p2 = params.replace(
+        warm_start=True,
+        max_iter=stage2_max_iter,
+        mu=stage2_mu,
+        mu_equality_scale_factor=stage2_mu_eq_scale,
+        check_feasibility=False,
+        freeze_infeasible_on_warm_start=True,
+    )
+    f32, f64 = torch.float32, torch.float64
+    return _delta_duals(
+        tree.astype(f32), tree.astype(f64), p1, p2, q,
+        _cast_problem(problem, f32), _cast_problem(problem, f64),
+        _cast_state(warm_state, f32) if warm_state is not None else None,
+        fused=bool(fused), batch_tile=batch_tile,
+    )
+
+
+def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
+                 fused=False, batch_tile=128) -> SolveResult:
+    """The body of loik_tpu's `_delta_duals_jit`, run eagerly."""
+    f32, f64 = torch.float32, torch.float64
+    B = q.shape[0]
+    if fused:
+        from ..kernels.fused import fused_solve_loop
+
+        def loop(tree, prob, params, st):
+            return fused_solve_loop(tree, params, prob, st, batch_tile)
+    else:
+        loop = _solve_loop
+
+    # ---- stage 1: plain f32 solve at the f32-floor tolerance -------------
+    res1 = _solve_impl(tree32, p1, q.to(f32), prob32, warm_state, loop=loop)
+    st1 = res1.state
+
+    with full_f32_matmul():
+        # ---- one f64 KKT-residual evaluation at the stage-1 point --------
+        st64 = _cast_state(st1, f64)
+        pp64 = prepare_problem(tree64, prob64, B, f64)
+        d0_v, d0_nu, fdpa_hat = kkt_residual(tree64, pp64, st64)
+
+        Av_hat = torch.stack(
+            [bsp.mv(pp64.A[k], st64.vis[c])
+             for k, c in enumerate(prob64.constraint_links)]
+        )                                                     # (NC,6,B)
+        b_d = pp64.b - Av_hat
+        lb_d = pp64.lb - st64.nu                              # padded slots: 0-0
+        ub_d = pp64.ub - st64.nu
+
+        # original-problem adaptive-tolerance scales (CheckConvergence,
+        # loik-loid-optimized.hxx:540-565) as (B,) floors for the delta stage
+        Href_vhat = bsp.mv(pp64.H_ref, st64.vis)
+        scale_p = torch.maximum(
+            torch.maximum(bsp.inf_norm_b(Av_hat), bsp.inf_norm_b(st64.nu)),
+            pp64.b_inf,
+        )
+        scale_d = torch.maximum(
+            torch.maximum(bsp.inf_norm_b(Href_vhat), pp64.Hv_inf),
+            torch.maximum(bsp.inf_norm_b(fdpa_hat), bsp.inf_norm_b(d0_nu)),
+        )
+
+        # ---- the f32 delta problem ---------------------------------------
+        pp32 = prepare_problem(tree32, prob32, B, f32)
+        prob_d = dataclasses.replace(
+            pp32,
+            Hv=(-d0_v).to(f32),
+            Hv_inf=bsp.inf_norm_b(d0_v).to(f32),
+            b=b_d.to(f32),
+            Atb=bsp.mtv(pp64.A, b_d).to(f32),
+            b_inf=bsp.inf_norm_b(b_d).to(f32),
+            lb=lb_d.to(f32),
+            ub=ub_d.to(f32),
+            r_offset=d0_nu.to(f32),
+            tol_scale_primal=scale_p.to(f32),
+            tol_scale_dual=scale_d.to(f32),
+        )
+
+        # ---- delta state: dx = 0, duals dy = 0, z = z_hat - nu_hat -------
+        zero = {n: torch.zeros_like(getattr(st1, n)) for n in
+                ("vis", "fis", "nu", "w", "yis", "Aty", "fdpa", "stfw")}
+        st_d = dataclasses.replace(st1, z=st1.z - st1.nu, **zero)
+        st_d = _reset_state(tree32, p2, st_d, f32)
+
+    st2 = loop(tree32, prob_d, p2, st_d)
+
+    # ---- recombine in the original space --------------------------------
+    nu_hat = _flat_nu(tree32, st1.nu)
+    vis_hat = st1.vis.movedim(-1, 0)
+    # the returned state is FULL-space (x = x_hat + dx, duals y_hat + dy), so
+    # warm-starting the next solve from it is meaningful; st2.stfw is already
+    # full-space (the delta iteration adds r_offset = (S'f + w)|_hat), fdpa
+    # needs the stage-boundary f64 evaluation added back
+    st_full = dataclasses.replace(
+        st2,
+        vis=st2.vis + st1.vis,
+        fis=st2.fis + st1.fis,
+        nu=st2.nu + st1.nu,
+        z=st2.z + st1.nu,
+        w=st1.w + st2.w,
+        yis=st1.yis + st2.yis,
+        Aty=st1.Aty + st2.Aty,
+        fdpa=st2.fdpa + fdpa_hat.to(f32),
+    )
+    return SolveResult(
+        nu=_flat_nu(tree32, st2.nu) + nu_hat,
+        z=_flat_nu(tree32, st2.z) + nu_hat,
+        vis=st2.vis.movedim(-1, 0) + vis_hat,
+        converged=st2.converged,
+        primal_infeasible=st2.primal_infeasible,
+        dual_infeasible=st2.dual_infeasible,
+        iterations=res1.iterations + st2.iterations,
+        tail_iterations=st2.tail_iterations,
+        primal_residual=st2.primal_residual,
+        dual_residual=st2.dual_residual,
+        state=st_full,
+    )
