@@ -1,37 +1,52 @@
 #!/usr/bin/env python3
-"""Drive loik_tpu_torch's main path once on one CUDA card and check it.
+"""Drive loik_tpu_torch's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The main path is the flagship tight-tolerance solve: `panda_arm` (7 revolute
-joints), one 6-D end-effector constraint, box bounds +-4, B = 16384
-problems, tol 1e-6, through `DiffIkSolver.solve_refined(method="delta")`
-with `fused="require"`.  Both float32 stages of that solve run the fused
-ADMM kernel (`loik_tpu_torch/kernels/csrc/fused_admm.cu`).
+Three main paths, each the tight-tolerance solve
+`DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
+tol 1e-6 whose two float32 stages run the fused ADMM kernel
+(`loik_tpu_torch/kernels/csrc/fused_admm.cu`):
+  - flagship: `panda_arm` (7 revolute joints), one 6-D end-effector
+    constraint, box +-4, B = 16384, check_interval 8;
+  - solo12: free-flyer base + 4 x 3 revolute joints (13 joints, 18 dof),
+    a base twist command and four point-foot constraints, box +-12,
+    B = 10240, check_interval 4;
+  - talos: the TALOS humanoid (33 joints, 38 dof, free-flyer base), a
+    gripper heave with the base held, box +-4, B = 4096, check_interval 1.
 
 Phases (any failure raises, so the script exits nonzero):
   1. a CUDA device, and the card's name and power limit from nvidia-smi;
   2. the kernel library built with nvcc from the sources in the checkout,
      with the build time and ptxas' register and spill report;
-  3. the double instantiation against the eager float64 loop at B=1024,
-     check_interval 1 and 8: every state field within 1e-9 abs-or-rel,
-     iterations and flags equal;
+  3. the double instantiation against the eager float64 loop on the
+     flagship at B=1024, check_interval 1 and 8: every state field within
+     1e-9 abs-or-rel, iterations and flags equal;
   4. the float instantiation against the eager float32 loop at B=16384 for
      max_iter 1, 2, 3 at check_interval 1, within 1e-4 abs-or-rel.  The
      kernel sums in the eager loop's order without FMA contraction, so the
      expected error is 0; 1e-4 is the bound for float32 reassociation;
-  5. the main path: the launch count rises by 2, the outcome budget against
-     the eager path (nu within 2e-5 where both converged, converged flags
-     differing on at most max(1, B/100) problems, equal iteration counts on
-     at least 99%), and, for every problem flagged converged, the task
-     residual |A v - b|_inf and the box violation recomputed in float64 from
-     (q, nu) at most 1e-5.  Then the kernel and the eager loop are run again
-     on the inputs the main path gave each stage, compared and timed with
-     CUDA events (median of 5 after a warm-up; the kernel's own device time
-     from torch.profiler beside it).
+  5. the flagship main path: the launch count rises by 2, the outcome budget
+     against the eager path (nu within 2e-5 where both converged, converged
+     flags differing on at most max(1, B/100) problems, equal iteration
+     counts on at least 99%), and, for every problem flagged converged, the
+     task residual |A v - b|_inf over every constraint and the box violation
+     recomputed in float64 from (q, nu) at most 1e-5.  Then the kernel and
+     the eager loop are run again on the inputs the main path gave each
+     stage, compared and timed with CUDA events (median of 5 after a
+     warm-up; the kernel's own device time from torch.profiler beside it),
+     the least time the card could take for the same work is computed
+     from this run's shapes and iteration counts, and stage 1 is timed
+     again at other block sizes and on a 64th and an 8th of the batch;
+  6. multi-dof joints and tall trees against the eager loop: the double
+     instantiation on solo12 (B=1024, check_interval 1 and 4) and talos
+     (B=256, check_interval 1) within 1e-9, padded dof slots zero; the float
+     instantiation on both at full B for max_iter 1, 2, 3 within 1e-4;
+  7. the solo12 main path, checked and timed as phase 5;
+  8. the talos main path, likewise.
 
-The line before the last reports the kernel as JSON; the last line is the
-run's verdict as JSON.
+The line before the last reports the kernel on each path as JSON; the last
+line is the run's verdict as JSON.
 """
 
 from __future__ import annotations
@@ -44,9 +59,19 @@ import subprocess
 import sys
 import time
 
-FLAGSHIP_B = 16384
-LINK = 6                   # panda_arm's end-effector joint
-TARGET = (0.0, 0.0, 0.2, 0.0, 0.0, 0.0)
+SOURCE = "loik_tpu_torch/kernels/csrc/fused_admm.cu"
+REPLACES = "loik_tpu/kernels/fused.py:62"
+# published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
+PEAK_FP32_OPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+# the three main paths: batch, check_interval, threads per block (None: the
+# package's default)
+PATHS = {
+    "flagship": dict(B=16384, K=8),
+    "solo12": dict(B=10240, K=4),
+    "talos": dict(B=4096, K=1),
+}
 
 
 def log(msg: str) -> None:
@@ -61,22 +86,62 @@ def card_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def flagship(lt, torch, dtype, device, B, check_interval, max_iter=200):
-    """The flagship tree, problem, params and a seeded q batch."""
-    tree = lt.robots.panda_arm(str(dtype).removeprefix("torch."), device=device)
-    b = torch.tensor([TARGET], dtype=dtype)
-    problem = lt.make_problem(
-        tree, (LINK,), b=b, lb=-4.0 * torch.ones(tree.nv, dtype=dtype),
-        ub=4.0 * torch.ones(tree.nv, dtype=dtype),
-    )
+def _skew(r):
+    return [[0.0, -r[2], r[1]], [r[2], 0.0, -r[0]], [-r[1], r[0], 0.0]]
+
+
+def config(lt, torch, name, dtype, device, B, check_interval, max_iter=200):
+    """(tree, constraint links, problem, params, seeded q batch) of a path."""
+    ds = str(dtype).removeprefix("torch.")
+    gen = torch.Generator(device=device).manual_seed(0)
+    if name == "flagship":
+        tree = lt.robots.panda_arm(ds, device=device)
+        links = (6,)                   # the end-effector joint
+        b = torch.tensor([[0.0, 0.0, 0.2, 0.0, 0.0, 0.0]], dtype=dtype)
+        problem = lt.make_problem(
+            tree, links, b=b, lb=-4.0 * torch.ones(tree.nv, dtype=dtype),
+            ub=4.0 * torch.ones(tree.nv, dtype=dtype))
+        q = tree.random_configuration((B,), generator=gen)
+    elif name == "solo12":
+        # stance task: a 6-D base twist command (heave 0.1) and zero linear
+        # velocity of the four foot POINTS, 0.16 m below the knee frames
+        # (A encodes v_lin - [r]x w per foot)
+        tree = lt.robots.solo12(ds, device=device)
+        links = (0,) + tree.leaf_joints
+        A = torch.zeros((5, 6, 6), dtype=dtype)
+        A[0] = torch.eye(6, dtype=dtype)
+        for k in range(1, 5):
+            A[k, :3, :3] = torch.eye(3, dtype=dtype)
+            A[k, :3, 3:] = -torch.tensor(_skew([0.0, 0.0, -0.16]), dtype=dtype)
+        b = torch.zeros((5, 6), dtype=dtype)
+        b[0, 2] = 0.1
+        problem = lt.make_problem(
+            tree, links, A=A, b=b, lb=-12.0 * torch.ones(tree.nv, dtype=dtype),
+            ub=12.0 * torch.ones(tree.nv, dtype=dtype))
+        # bent-knee standing configurations (straight legs are singular)
+        q0 = tree.neutral().clone()
+        q0[7:] = torch.tensor([0, 0.8, -1.6] * 2 + [0, -0.8, 1.6] * 2, dtype=dtype)
+        dq = 0.3 * (2.0 * torch.rand((B, tree.nv), generator=gen, dtype=dtype,
+                                     device=device) - 1.0)
+        q = tree.integrate(q0, dq)
+    elif name == "talos":
+        # a commanded gripper heave with the base held (stance)
+        tree = lt.robots.talos(ds, device=device)
+        links = (tree.joint_names.index("gripper_left_joint"), 0)
+        b = torch.zeros((2, 6), dtype=dtype)
+        b[0, 2] = 0.2
+        problem = lt.make_problem(
+            tree, links, b=b, lb=-4.0 * torch.ones(tree.nv, dtype=dtype),
+            ub=4.0 * torch.ones(tree.nv, dtype=dtype))
+        q = tree.random_configuration((B,), generator=gen)
+    else:
+        raise KeyError(name)
     params = lt.SolverParams(
         max_iter=max_iter, tol_abs=1e-6, tol_rel=1e-6, mu=0.1,
         mu_equality_scale_factor=1e5, tail_solve=False,
         check_interval=check_interval,
     )
-    gen = torch.Generator(device=device).manual_seed(0)
-    q = tree.random_configuration((B,), generator=gen)
-    return tree, problem, params, q
+    return tree, links, problem, params, q
 
 
 def initial_state(sm, tree, problem, params, q):
@@ -143,9 +208,10 @@ def kernel_device_ms(torch, fn):
     return us / 1e3 if us else None
 
 
-def link_velocity(torch, sm, bsp, tree, q, nu, link):
-    """Local-frame spatial velocity of `link` for joint velocities nu (B, nv):
-    the kinematic recursion v_i = X_i^-1 v_parent + S_i nu_i from FK."""
+def link_velocities(sm, bsp, tree, q, nu):
+    """Local-frame spatial velocity of every link for joint velocities nu
+    (B, nv): the kinematic recursion v_i = X_i^-1 v_parent + S_i nu_i from
+    FK.  Returns a list of (B, 6) tensors."""
     R, p = sm.fwd_pass_init(tree, q)                 # (N,3,3,B), (N,3,B)
     nu_t = nu.movedim(0, -1)                           # (nv, B)
     v = []
@@ -155,7 +221,251 @@ def link_velocity(torch, sm, bsp, tree, q, nu, link):
         iv, k = tree.idx_v[i], tree.nvs[i]
         S = tree.joint_S(i)[:, :, None]                # (6, k, 1)
         v.append(bsp.act_inv_motion(R[i], p[i], v_par) + bsp.mv(S, nu_t[iv:iv + k]))
-    return v[link].movedim(-1, 0)                      # (B, 6)
+    return [x.movedim(-1, 0) for x in v]
+
+
+def batch_prefix(torch, x, B, n):
+    """A prepared problem or a state cut to its first n of B problems."""
+    cut = {f.name: getattr(x, f.name)[..., :n].contiguous() for f in dataclasses.fields(x)
+           if isinstance(getattr(x, f.name), torch.Tensor) and getattr(x, f.name).ndim
+           and getattr(x, f.name).shape[-1] == B}
+    return dataclasses.replace(x, **cut)
+
+
+def loop_bound(fused_mod, tree, params, prob, st_in, st_out):
+    """(bytes, operations) the fused loop needs for this call: every input
+    read once and every output written once, and the arithmetic of the
+    iterations these inputs actually ran (a multiply and an add count one
+    operation each).  The H half of the Riccati sweep runs once per body
+    call (iterations / check_interval), the checks once per body call too."""
+    tensors = [getattr(st_in, n) for n in fused_mod._STATE_FIELDS]
+    tensors += [getattr(prob, n) for n in fused_mod._PROB_FIELDS]
+    tensors += [getattr(prob, n) for n in fused_mod._OPTIONAL_FIELDS
+                if getattr(prob, n) is not None]
+    tensors += [st_in.liMi_R, st_in.liMi_p,
+                fused_mod._subspace_operand(tree, st_in.vis.dtype)]
+    tensors += [getattr(st_out, n) for n in fused_mod._STATE_FIELDS]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+
+    N, NC, nv = tree.njoints, len(prob.constraint_links), tree.nv
+    K = params.check_interval
+    nonroot = [k for k, par in zip(tree.nvs, tree.parents) if par >= 0]
+    h_half = 6 * N + 72 * NC                      # rho I + H_ref + mu_eq AtA
+    for k in tree.nvs:                            # U = H S, D = S'U + mu I, D^-1
+        h_half += 66 * k + 11 * k * k + k + (1 if k == 1 else 2 * k ** 3)
+    for k in nonroot:                             # U D^-1, H - U D^-1 U', X* Ha X*'
+        h_half += 6 * k * (2 * k - 1) + 72 * k + 846
+    iterate = 2 * nv + 12 * N + 18 * NC           # FwdPass1
+    iterate += 12 * nv + sum(12 * k + 51 for k in nonroot)            # BwdPass
+    iterate += N * (39 + 72) + sum(12 * k + 2 * k * k + 12 * k for k in tree.nvs)  # FwdPass2
+    iterate += 6 * nv + 144 * NC                  # BoxProj, DualUpdate
+    checks = 57 * N + 13 * nv + 78 * N + 40 * N + 20 * nv + 30 * NC   # dual residual, norms
+    its = int((st_out.iterations - st_in.iterations).sum())
+    ops = its * iterate + (its // K) * (h_half + checks)
+    return nbytes, ops
+
+
+def bound_ms(nbytes, ops):
+    """The least time for (bytes, operations) at the published peaks, and
+    which of the two sets it."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class HostSplit:
+    """Host-clock time per layer of one solve, with a synchronize around
+    every timed call: wraps the named module functions for one `with`."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.ms, self.saved = torch, targets, {}, []
+
+    def __enter__(self):
+        for label, mod, attr in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, self._timed(label, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+    def _timed(self, label, fn):
+        def wrapper(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[label] = self.ms.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+
+def main_path(mods, name, phase):
+    """Drive one main path through the kernel, check it against the eager
+    path and in float64, time it; returns the path's `kernels` entry."""
+    torch, lt, fused_mod, sm, rf, bsp = mods
+    B, K = PATHS[name]["B"], PATHS[name]["K"]
+    dev = torch.device("cuda")
+    tree, links, problem, params, q = config(lt, torch, name, torch.float32, dev, B, K)
+    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    eager = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False)
+
+    captured = []                      # the kernel's inputs, stage by stage
+    launch = fused_mod.fused_solve_loop
+
+    def recording(tree_, params_, prob_, st_, batch_tile=None):
+        captured.append((tree_, params_, prob_, st_, batch_tile))
+        return launch(tree_, params_, prob_, st_, batch_tile)
+
+    fused_mod.fused_solve_loop = recording
+    fused_mod.LAUNCHES = 0
+    res = solver.solve_refined(q, method="delta")
+    torch.cuda.synchronize()
+    launches = fused_mod.LAUNCHES
+    fused_mod.fused_solve_loop = launch
+    log(f"[{phase}] {name} main path B={B} check_interval={K} ({tree.njoints} joints, "
+        f"{tree.nv} dof, {len(links)} constraints): kernel launches {launches}")
+    if launches != 2 or len(captured) != 2:
+        raise AssertionError(f"expected 2 kernel launches, got {launches}")
+
+    res_e = eager.solve_refined(q, method="delta")
+    conv, conv_e = res.converged, res_e.converged
+    both = conv & conv_e
+    nu_err = float((res.nu - res_e.nu)[both].abs().max())
+    flag_diff = int((conv != conv_e).sum())
+    it_eq = float((res.iterations == res_e.iterations).double().mean())
+    log(f"    vs eager: nu max |diff| {nu_err:.3e} (converged in both), "
+        f"flag diffs {flag_diff}, equal iteration counts {it_eq:.4f}, "
+        f"all-problem nu max |diff| {float((res.nu - res_e.nu).abs().max()):.3e}")
+    if not (nu_err <= 2e-5 and flag_diff <= max(1, B // 100) and it_eq >= 0.99):
+        raise AssertionError("outcome budget against the eager path not met")
+
+    # certification honesty: recompute every task residual in float64 from (q, nu)
+    tree64 = tree.astype(torch.float64)
+    nu64 = res.nu.double()[conv]
+    v = link_velocities(sm, bsp, tree64, q.double()[conv], nu64)
+    task = max(float((v[c] @ problem.A[k].double().T - problem.b[k].double()).abs().max())
+               for k, c in enumerate(links))
+    box = float(torch.clamp(torch.maximum(problem.lb.double() - nu64,
+                                          nu64 - problem.ub.double()), min=0).max())
+    log(f"    converged {float(conv.double().mean()):.4f}, mean iterations "
+        f"{float(res.iterations.double().mean()):.2f}, f64 task residual "
+        f"{task:.3e} over {len(links)} constraints, box violation {box:.3e} "
+        "(max over converged)")
+    if not (task <= 1e-5 and box <= 1e-5):
+        raise AssertionError("a converged problem misses the task or the box")
+
+    ms_path = cuda_median_ms(torch, lambda: solver.solve_refined(q, method="delta"))
+    ms_eager_path = cuda_median_ms(torch, lambda: eager.solve_refined(q, method="delta"),
+                                   reps=3)
+    log(f"    solve_refined: kernel path {ms_path:.3f} ms (median of 5), eager path "
+        f"{ms_eager_path:.3f} ms (median of 3), CUDA events")
+
+    # where the host's time goes: one solve with a synchronize around each layer
+    split = HostSplit(torch, [
+        ("FK", sm, "fwd_pass_init"), ("prepare", sm, "prepare_problem"),
+        ("prepare", rf, "prepare_problem"), ("reset", sm, "_reset_state"),
+        ("reset", rf, "_reset_state"), ("f64 KKT", rf, "kkt_residual"),
+        ("kernel wrapper", fused_mod, "fused_solve_loop")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with split:
+        solver.solve_refined(q, method="delta")
+        torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    rest = total - sum(split.ms.values())
+    log(f"    host split of one synced solve ({total:.3f} ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.ms.items())
+        + f", rest (delta problem, casts, validation, recombination) {rest:.3f} ms")
+
+    # each stage's kernel against its plain version on the same inputs
+    kernel_ms = plain_ms = alone_ms = 0.0
+    worst_err, nbytes_all, ops_all = 0.0, 0, 0
+    for stage, (tree_, params_, prob_, st_, bt) in enumerate(captured, 1):
+        ker = launch(tree_, params_, prob_, st_, bt)
+        ref = sm._solve_loop(tree_, prob_, params_, st_)
+        err = max(a for a, _ in state_errors(torch, fused_mod._STATE_FIELDS,
+                                             ker, ref).values())
+        k_ms = cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
+        p_ms = cuda_median_ms(torch, lambda: sm._solve_loop(tree_, prob_, params_, st_),
+                              reps=3)
+        dev_ms = kernel_device_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
+        nbytes, ops = loop_bound(fused_mod, tree_, params_, prob_, st_, ker)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        log(f"    stage {stage}: fused_solve_loop {k_ms:.3f} ms (kernel alone "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} on the "
+            f"profiler), eager loop {p_ms:.3f} ms, max abs err {err:.3e}; "
+            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations, bound {b_ms:.4f} ms "
+            f"by {b_by}")
+        kernel_ms, plain_ms, worst_err = kernel_ms + k_ms, plain_ms + p_ms, max(worst_err, err)
+        alone_ms = None if dev_ms is None or alone_ms is None else alone_ms + dev_ms
+        nbytes_all, ops_all = nbytes_all + nbytes, ops_all + ops
+    if worst_err > 2e-5:
+        raise AssertionError(f"kernel vs eager loop at the main path's inputs: {worst_err}")
+
+    # threads per block: stage 1 again at other block sizes
+    tree_, params_, prob_, st_, bt = captured[0]
+    tiles = {t: cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, t))
+             for t in (32, 64, 128, 256)}
+    log("    stage 1 by threads per block: "
+        + ", ".join(f"{t}: {ms:.3f} ms" for t, ms in tiles.items()))
+
+    # batch size: stage 1 again on the first n problems, with the longest
+    # and the mean iteration count among them (the launch lasts as long as
+    # its slowest thread)
+    sizes = []
+    for n in (B // 64, B // 8, B):
+        prob_n, st_n = batch_prefix(torch, prob_, B, n), batch_prefix(torch, st_, B, n)
+        its = launch(tree_, params_, prob_n, st_n, bt).iterations
+        ms = cuda_median_ms(torch, lambda: launch(tree_, params_, prob_n, st_n, bt))
+        sizes.append(f"{n}: {ms:.3f} ms (iterations max {int(its.max())}, "
+                     f"mean {float(its.double().mean()):.2f})")
+    log("    stage 1 by batch size: " + ", ".join(sizes))
+
+    least_ms, least_by = bound_ms(nbytes_all, ops_all)
+    return {
+        "name": f"fused_admm/{name}", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES, "launches": launches, "max_abs_err": worst_err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": least_ms,
+        "bound_by": least_by, "library_ms": None, "kernel_alone_ms": alone_ms,
+    }
+
+
+def against_eager(mods, name, dtype, B, K, max_iter=200):
+    """The kernel and the eager loop from the same initial state."""
+    torch, lt, fused_mod, sm, _, _ = mods
+    dev = torch.device("cuda")
+    tree, _, problem, params, q = config(lt, torch, name, dtype, dev, B, K, max_iter)
+    prob, st = initial_state(sm, tree, problem, params, q)
+    ker = fused_mod.fused_solve_loop(tree, params, prob, st)
+    ref = sm._solve_loop(tree, prob, params, st)
+    for field in ("nu", "z", "w", "stfw"):     # padded dof slots stay zero
+        x = getattr(ker, field)
+        for i, k in enumerate(tree.nvs):
+            if k < tree.nv_max and float(x[i, k:].abs().max()) != 0.0:
+                raise AssertionError(f"{name}: {field}[{i}] writes a padded dof slot")
+    return state_errors(torch, fused_mod._STATE_FIELDS, ker, ref), ref
+
+
+def double_check(mods, phase, name, B, K):
+    torch = mods[0]
+    errs, ref = against_eager(mods, name, torch.float64, B, K)
+    worst = max(rel for _, rel in errs.values())
+    log(f"[{phase}] {name} f64 B={B} K={K}: worst abs-or-rel {worst:.3e}, "
+        f"mean iterations {ref.iterations.double().mean():.2f}")
+    if worst > 1e-9:
+        raise AssertionError(f"f64 kernel vs eager {name} K={K}: {errs}")
+
+
+def float_lockstep(mods, phase, name, B):
+    torch = mods[0]
+    for mi in (1, 2, 3):
+        errs, _ = against_eager(mods, name, torch.float32, B, 1, max_iter=mi)
+        log(f"[{phase}] {name} f32 B={B} max_iter={mi}: "
+            + ", ".join(f"{k} {rel:.1e}" for k, (_, rel) in errs.items()))
+        if max(rel for _, rel in errs.values()) > 1e-4:
+            raise AssertionError(f"f32 lockstep {name} max_iter={mi}: {errs}")
 
 
 def main() -> None:
@@ -169,10 +479,11 @@ def main() -> None:
     from loik_tpu_torch.kernels import _build
     from loik_tpu_torch.kernels import fused as fused_mod
     from loik_tpu_torch.solver import batched_spatial as bsp
+    from loik_tpu_torch.solver import refine as rf
     import loik_tpu_torch.solver.solve  # noqa: F401  (the module, not the function)
 
     sm = sys.modules["loik_tpu_torch.solver.solve"]
-    dev = torch.device("cuda")
+    mods = (torch, lt, fused_mod, sm, rf, bsp)
     t_start = time.time()
 
     # ---- 1. the card ----------------------------------------------------
@@ -193,115 +504,27 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    " + line.strip())
 
-    # ---- 3. double instantiation vs eager float64 -------------------------
+    # ---- 3, 4. the flagship's instantiation vs the eager loop ------------
     for K in (1, 8):
-        tree, problem, params, q = flagship(lt, torch, torch.float64, dev, 1024, K)
-        prob, st = initial_state(sm, tree, problem, params, q)
-        ker = fused_mod.fused_solve_loop(tree, params, prob, st)
-        ref = sm._solve_loop(tree, prob, params, st)
-        errs = state_errors(torch, fused_mod._STATE_FIELDS, ker, ref)
-        worst = max(rel for _, rel in errs.values())
-        log(f"[3] f64 B=1024 K={K}: worst abs-or-rel {worst:.3e}, "
-            f"mean iterations {ref.iterations.double().mean():.2f}")
-        if worst > 1e-9:
-            raise AssertionError(f"f64 kernel vs eager K={K}: {errs}")
+        double_check(mods, 3, "flagship", 1024, K)
+    float_lockstep(mods, 4, "flagship", PATHS["flagship"]["B"])
 
-    # ---- 4. float instantiation vs eager float32, lockstep ------------------
-    for mi in (1, 2, 3):
-        tree, problem, params, q = flagship(lt, torch, torch.float32, dev,
-                                            FLAGSHIP_B, 1, max_iter=mi)
-        prob, st = initial_state(sm, tree, problem, params, q)
-        ker = fused_mod.fused_solve_loop(tree, params, prob, st)
-        ref = sm._solve_loop(tree, prob, params, st)
-        errs = state_errors(torch, fused_mod._STATE_FIELDS, ker, ref)
-        log(f"[4] f32 B={FLAGSHIP_B} max_iter={mi}: "
-            + ", ".join(f"{k} {rel:.1e}" for k, (_, rel) in errs.items()))
-        if max(rel for _, rel in errs.values()) > 1e-4:
-            raise AssertionError(f"f32 lockstep max_iter={mi}: {errs}")
+    # ---- 5. the flagship main path ---------------------------------------
+    kernels = [main_path(mods, "flagship", 5)]
 
-    # ---- 5. the main path ----------------------------------------------
-    tree, problem, params, q = flagship(lt, torch, torch.float32, dev, FLAGSHIP_B, 8)
-    solver = lt.DiffIkSolver(tree, params, (LINK,), problem=problem, fused="require")
-    eager = lt.DiffIkSolver(tree, params, (LINK,), problem=problem, fused=False)
+    # ---- 6. multi-dof joints and tall trees vs the eager loop ------------
+    double_check(mods, 6, "solo12", 1024, 1)
+    double_check(mods, 6, "solo12", 1024, 4)
+    double_check(mods, 6, "talos", 256, 1)
+    float_lockstep(mods, 6, "solo12", PATHS["solo12"]["B"])
+    float_lockstep(mods, 6, "talos", PATHS["talos"]["B"])
 
-    captured = []                      # the kernel's inputs, stage by stage
-    launch = fused_mod.fused_solve_loop
-
-    def recording(tree_, params_, prob_, st_, batch_tile=None):
-        captured.append((tree_, params_, prob_, st_, batch_tile))
-        return launch(tree_, params_, prob_, st_, batch_tile)
-
-    fused_mod.fused_solve_loop = recording
-    fused_mod.LAUNCHES = 0
-    res = solver.solve_refined(q, method="delta")
-    torch.cuda.synchronize()
-    launches = fused_mod.LAUNCHES
-    fused_mod.fused_solve_loop = launch
-    log(f"[5] main path B={FLAGSHIP_B}: kernel launches {launches}")
-    if launches != 2 or len(captured) != 2:
-        raise AssertionError(f"expected 2 kernel launches, got {launches}")
-
-    res_e = eager.solve_refined(q, method="delta")
-    conv, conv_e = res.converged, res_e.converged
-    both = conv & conv_e
-    nu_err = float((res.nu - res_e.nu)[both].abs().max())
-    flag_diff = int((conv != conv_e).sum())
-    it_eq = float((res.iterations == res_e.iterations).double().mean())
-    log(f"    vs eager: nu max |diff| {nu_err:.3e} (converged in both), "
-        f"flag diffs {flag_diff}, equal iteration counts {it_eq:.4f}, "
-        f"all-problem nu max |diff| {float((res.nu - res_e.nu).abs().max()):.3e}")
-    if not (nu_err <= 2e-5 and flag_diff <= max(1, FLAGSHIP_B // 100) and it_eq >= 0.99):
-        raise AssertionError("outcome budget against the eager path not met")
-
-    # certification honesty: recompute the task residual in float64 from (q, nu)
-    tree64 = tree.astype(torch.float64)
-    nu64 = res.nu.double()[conv]
-    v = link_velocity(torch, sm, bsp, tree64, q.double()[conv], nu64, LINK)
-    A = problem.A[0].double()
-    b = problem.b[0].double()
-    task = float((v @ A.T - b).abs().max())
-    box = float(torch.clamp(torch.maximum(problem.lb.double() - nu64,
-                                          nu64 - problem.ub.double()), min=0).max())
-    log(f"    converged {float(conv.double().mean()):.4f}, mean iterations "
-        f"{float(res.iterations.double().mean()):.2f}, f64 task residual "
-        f"{task:.3e}, box violation {box:.3e} (max over converged)")
-    if not (task <= 1e-5 and box <= 1e-5):
-        raise AssertionError("a converged problem misses the task or the box")
-
-    ms_path = cuda_median_ms(torch, lambda: solver.solve_refined(q, method="delta"))
-    ms_eager_path = cuda_median_ms(torch, lambda: eager.solve_refined(q, method="delta"))
-    log(f"    solve_refined: kernel path {ms_path:.3f} ms, eager path "
-        f"{ms_eager_path:.3f} ms (median of 5, CUDA events)")
-
-    # each stage's kernel against its plain version on the same inputs
-    kernel_ms = plain_ms = 0.0
-    worst_err = 0.0
-    for stage, (tree_, params_, prob_, st_, bt) in enumerate(captured, 1):
-        ker = launch(tree_, params_, prob_, st_, bt)
-        ref = sm._solve_loop(tree_, prob_, params_, st_)
-        err = max(a for a, _ in state_errors(torch, fused_mod._STATE_FIELDS,
-                                             ker, ref).values())
-        k_ms = cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
-        p_ms = cuda_median_ms(torch, lambda: sm._solve_loop(tree_, prob_, params_, st_))
-        dev_ms = kernel_device_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
-        log(f"    stage {stage}: fused_solve_loop {k_ms:.3f} ms (kernel alone "
-            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} on the "
-            f"profiler), eager loop {p_ms:.3f} ms, max abs err {err:.3e}")
-        kernel_ms, plain_ms, worst_err = kernel_ms + k_ms, plain_ms + p_ms, max(worst_err, err)
-    if worst_err > 2e-5:
-        raise AssertionError(f"kernel vs eager loop at the main path's inputs: {worst_err}")
+    # ---- 7, 8. the legged robots' main paths -----------------------------
+    kernels.append(main_path(mods, "solo12", 7))
+    kernels.append(main_path(mods, "talos", 8))
 
     log(f"done in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "fused_admm",
-        "route": "cuda",
-        "source": "loik_tpu_torch/kernels/csrc/fused_admm.cu",
-        "replaces": "loik_tpu/kernels/fused.py:62",
-        "launches": launches,
-        "max_abs_err": worst_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

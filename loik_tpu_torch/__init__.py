@@ -12,7 +12,7 @@ package never imports it or jax.
 
 from . import spatial
 from .api import DiffIkSolver
-from .model import KinematicTree, load_urdf, robots
+from .model import KinematicTree, builders, load_urdf, make_tree, robots
 from .params import MuUpdateStrat, SolverParams
 from .problem import IkProblem, make_problem
 from .solver import solve

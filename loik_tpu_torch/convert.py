@@ -4,7 +4,8 @@ The arguments are the JAX package's objects, taken duck-typed: every array
 leaf goes through `np.asarray` and static fields are copied, so this module
 (like the whole package) never imports jax.  The tests use it so that both
 packages compute on the same tree, problem and warm state; `state_to_numpy`
-goes the other way for comparisons.
+goes the other way for comparisons.  ``device=None`` is the CUDA device,
+as everywhere in the package.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .model.tree import KinematicTree
+from .model.tree import KinematicTree, resolve_device
 from .problem import IkProblem
 from .solver.state import SolverState
 
@@ -23,36 +24,41 @@ _EXACT_DTYPES = {np.dtype(bool): torch.bool, np.dtype(np.int32): torch.int32}
 
 
 def _tensor(x, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    device = resolve_device(device)
     a = np.array(x)  # a writable copy (jax arrays export read-only buffers)
     if a.dtype in _EXACT_DTYPES:
         return torch.as_tensor(a, dtype=_EXACT_DTYPES[a.dtype], device=device)
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def tree_from_arrays(tree, device="cpu", dtype: Optional[torch.dtype] = None) -> KinematicTree:
-    """A port tree from a `loik_tpu` KinematicTree (same topology, leaves,
-    joint codes).  Trees the port cannot represent raise (joint types other
-    than revolute/prismatic, universal/mimic extras)."""
-    for extra in ("axis2", "pitches", "mimic", "placement2_R", "placement2_p"):
-        if getattr(tree, extra, None) is not None:
-            raise NotImplementedError(
-                f"tree '{tree.name}' uses {extra}: not ported yet "
-                "(ROADMAP queue 1 item 7)")
+def tree_from_arrays(tree, device=None, dtype: Optional[torch.dtype] = None) -> KinematicTree:
+    """A port tree from a `loik_tpu` KinematicTree: same topology, leaves,
+    joint codes and static extras (pitches, mimic metadata)."""
+    def leaf(x):
+        return None if x is None else _tensor(x, device, dtype)
+
     return KinematicTree(
-        placement_R=_tensor(tree.placement_R, device, dtype),
-        placement_p=_tensor(tree.placement_p, device, dtype),
-        axis=_tensor(tree.axis, device, dtype),
-        velocity_limit=_tensor(tree.velocity_limit, device, dtype),
+        placement_R=leaf(tree.placement_R),
+        placement_p=leaf(tree.placement_p),
+        axis=leaf(tree.axis),
+        velocity_limit=leaf(tree.velocity_limit),
         parents=tuple(int(p) for p in tree.parents),
         jtypes=tuple(int(t) for t in tree.jtypes),
         idx_v=tuple(int(i) for i in tree.idx_v),
         idx_q=tuple(int(i) for i in tree.idx_q),
         joint_names=tuple(tree.joint_names),
         name=tree.name,
+        axis2=leaf(tree.axis2),
+        pitches=None if tree.pitches is None else tuple(float(h) for h in tree.pitches),
+        mimic=None if tree.mimic is None else tuple(
+            None if m is None else (int(m[0]), int(m[1]), float(m[2]), float(m[3]))
+            for m in tree.mimic),
+        placement2_R=leaf(tree.placement2_R),
+        placement2_p=leaf(tree.placement2_p),
     )
 
 
-def problem_from_arrays(problem, device="cpu",
+def problem_from_arrays(problem, device=None,
                         dtype: Optional[torch.dtype] = None) -> IkProblem:
     """A port IkProblem from a `loik_tpu` IkProblem."""
     return IkProblem(
@@ -66,7 +72,7 @@ def problem_from_arrays(problem, device="cpu",
     )
 
 
-def state_from_arrays(state, device="cpu",
+def state_from_arrays(state, device=None,
                       dtype: Optional[torch.dtype] = None) -> SolverState:
     """A port SolverState from a `loik_tpu` SolverState: every field the
     port has, bool and int32 fields kept exact, floating fields in

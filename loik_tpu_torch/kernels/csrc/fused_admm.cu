@@ -3,19 +3,31 @@
 // termination, one thread per problem.
 //
 // Replaces: loik_tpu/kernels/fused.py::_kernel (the Pallas TPU kernel, whose
-// body is loik_tpu/solver/solve.py::make_loop_body -> _iteration + _h_sweep).
-// Written from the solver math (solve.py:135-653), not from the Pallas carry
-// plumbing.
+// body is loik_tpu/solver/solve.py::make_loop_body -> _iteration + _h_sweep,
+// with the k x k D blocks of loik_tpu/solver/batched_spatial.py::spd_inv).
+// Written from the solver math, not from the Pallas carry plumbing.
 //
-// What bounds it on this card: at the flagship batch (B = 16384 problems of
-// a 7-joint arm) one thread per problem gives ~124 threads per SM on 132
-// SMs, far below the 2048 an SM can hold, and every problem is a long,
-// data-dependent chain of tiny 6x6 products and tree recursions.  The kernel
-// is latency- and occupancy-bound, not bandwidth-bound: the working set is a
-// few KB per problem (~45 MB in total, inside the 50 MB L2), and the per-
-// thread arrays below live in local memory.  This first version does nothing
-// about that; several lanes per problem (a warp-cooperative 6x6 sweep) is the
-// planned next step (ROADMAP queue 2).
+// Preconditions (kernels/fused.py::fused_eligibility names the first one a
+// call breaks): at most LOIK_MAX_JOINTS joints with at most LOIK_MAX_NV
+// dofs in all, joints of 1 to 6 dofs with a constant motion subspace, at
+// most LOIK_MAX_CONSTRAINTS constraints on distinct links, 1..1024 threads
+// per block.
+//
+// What bounds it on this card: latency, not either roof.  Counting each input
+// read once and each output written once against the iterations a run
+// needs, the loop's floor is set by its bytes (a few KB per problem, some
+// 0.02 to 0.03 ms per launch at HBM rate; chip_smoke.py computes it), and the
+// kernel sits 30 to 600 times above it.  One thread per problem gives 16384
+// (panda_arm), 10240 (solo12) or 4096 (talos) threads on 132 SMs that can
+// hold 2048 each, and every problem is a long, data-dependent chain of tiny
+// 6x6 products and tree recursions whose per-thread arrays live in local
+// memory (ptxas for sm_90a: a stack frame of 3968 B in float and 7936 B in
+// double for the 16-joint instantiation, 11840 B and 23360 B for the 40-joint
+// one, 153 to 168 registers, no spills; PERF.md has the report).  The tall
+// frame is why talos' loop is the slowest per problem: every H, U and p it
+// touches is a local-memory access.  This version does nothing about that;
+// several lanes per problem (a warp-cooperative 6x6 sweep) is the planned
+// next step (ROADMAP queue 2).
 //
 // Design:
 // - Thread b owns problem b.  Element (i, ..., b) of a trailing-batch tensor
@@ -25,23 +37,37 @@
 //   slowest member under masked merges.  Here each thread runs its own
 //   `while (running)` loop with its own counter it += K.  That gives the
 //   same per-problem results: a problem that stops never restarts
-//   (running_next = active & ..., solve.py:588), a stopped problem's state
-//   is frozen by the merge, and `iterations` is written only while the
-//   problem is active.  Inside its own loop a thread is always active, so
-//   the masked merge becomes a plain store, and the global counter the tile
-//   would have used equals this thread's counter at each of its body calls.
+//   (running_next = active & ...), a stopped problem's state is frozen by
+//   the merge, and `iterations` is written only while the problem is
+//   active.  Inside its own loop a thread is always active, so the masked
+//   merge becomes a plain store, and the global counter the tile would have
+//   used equals this thread's counter at each of its body calls.
 // - In place.  The wrapper clones the input state; this kernel updates the
 //   clones in place (only thread b touches column b).  The loop counter `it`
 //   starts from the input state's and ends as the largest over the problems
 //   (atomicMax), which is the value the eager loop's shared counter ends at.
-// - Topology at run time: parents, constraint links and the per-joint motion
-//   subspace S (N, 6) arrive in the by-value config struct.  S is
-//   iteration-constant data computed on the host by KinematicTree.joint_S.
-//   1-dof joints only, so D and D^-1 are scalars.
-// - The K > 1 hoist (solve.py:516-528): the H half of the Riccati sweep
-//   (H_list, U, D^-1, U D^-1) depends only on (mu_eq, mu_ineq, liMi) and is
-//   computed once per body call, then shared by the K-1 check-free
-//   micro-iterations and the checked one.  K = 1 computes it once too.
+// - Topology at run time: parents, dofs per joint and constraint links
+//   arrive in the by-value config struct.  The motion subspaces S are a
+//   device operand, one (N, 6, nv_max) tensor of the kernel's scalar type
+//   shared by all problems (zero-padded columns past a joint's dofs), built
+//   once per tree by the wrapper.  (A per-block copy in shared memory was
+//   measured and gave nothing: every lane reads the same address, which the
+//   L1 serves as a broadcast already.)
+// - Joints of k dofs.  U = H S and U D^-1 are 6 x k, stored by dof
+//   (U[dof][row]); D = S'HS + mu I is k x k and D^-1 comes from the unrolled
+//   Cholesky + triangular inverse + M'M of batched_spatial.spd_inv, in its
+//   operation order, stored at a running offset of k^2.  Every product with
+//   S multiplies through, zeros included (a free flyer's S is eye(6)), as
+//   the eager loop does.  The padded (N, nv_max, B) dof tensors are read
+//   and written at slots j < k only; padded slots stay as they came (zero).
+// - Two instantiations per scalar type: all joints 1-dof and at most 16 of
+//   them (every k is the constant 1, D is a scalar, the frame is short: the
+//   flagship arm), and the general one at the caps.  `launch` picks by the
+//   tree.
+// - The K > 1 hoist: the H half of the Riccati sweep (H_list, U, D^-1,
+//   U D^-1) depends only on (mu_eq, mu_ineq, liMi) and is computed once per
+//   body call, then shared by the K-1 check-free micro-iterations and the
+//   checked one.  K = 1 computes it once too.
 // - Typed arithmetic: a template on the scalar type T, every literal T(...),
 //   IEEE division (no fast math).  Every sum runs term by term in the index
 //   order of solver/batched_spatial.py, and the library is compiled with
@@ -55,22 +81,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define LOIK_MAX_JOINTS 16
+#define LOIK_MAX_JOINTS 40
+#define LOIK_MAX_NV 48
 #define LOIK_MAX_CONSTRAINTS 8
+// caps of the instantiation for trees of 1-dof joints only
+#define LOIK_SMALL_JOINTS 16
 
 // Keep in step with kernels/fused.py::_LoikConfig (same order and types).
+// nv_max is the dof-slot stride of the padded (N, nv_max, B) tensors and of
+// the columns of S.
 struct LoikConfig {
-  int B, N, NC, threads;
+  int B, N, NC, nv_max, threads;
   int max_iter, check_interval, check_feasibility, tail_solve;
   int parents[LOIK_MAX_JOINTS];
+  int nvs[LOIK_MAX_JOINTS];
   int clinks[LOIK_MAX_CONSTRAINTS];
-  double S[LOIK_MAX_JOINTS][6];
   double rho, tol_abs, tol_rel, tol_primal_inf, tol_tail_solve, mu_eq_scale;
 };
 
 // Order of the pointer array; keep in step with kernels/fused.py (the 24
 // state fields of _STATE_FIELDS, the 10 of _PROB_FIELDS, the 3 optional
-// delta-stage fields, liMi, then the input state's loop counter).
+// delta-stage fields, liMi, the motion subspaces, then the input state's
+// loop counter).
 enum LoikPtr {
   P_VIS, P_FIS, P_NU, P_Z, P_W, P_YIS, P_ATY, P_FDPA, P_STFW,
   P_MU, P_MU_EQ, P_MU_INEQ, P_ITERATIONS, P_TAIL_ITERATIONS,
@@ -78,7 +110,7 @@ enum LoikPtr {
   P_RP, P_RD, P_DX, P_DZ, P_IT,
   P_H_REF, P_HV, P_A, P_B, P_ATA, P_ATB, P_LB, P_UB, P_B_INF, P_HV_INF,
   P_R_OFFSET, P_TOL_SCALE_PRIMAL, P_TOL_SCALE_DUAL,
-  P_LIMI_R, P_LIMI_P, P_IT_IN,
+  P_LIMI_R, P_LIMI_P, P_S, P_IT_IN,
   P_COUNT
 };
 
@@ -93,6 +125,7 @@ struct LoikPtrs {
   const T *H_ref, *Hv, *A, *b, *AtA, *Atb, *lb, *ub, *b_inf, *Hv_inf;
   const T *r_offset, *tol_scale_primal, *tol_scale_dual;  // nullptr if absent
   const T *liMi_R, *liMi_p;
+  const T* S;  // (N, 6, nv_max), shared by all problems
   const int32_t* it_in;  // () the input state's loop counter
 };
 
@@ -110,6 +143,9 @@ __device__ __forceinline__ T nmin(T a, T b) {
 
 __device__ __forceinline__ float absv(float x) { return fabsf(x); }
 __device__ __forceinline__ double absv(double x) { return fabs(x); }
+// the routine behind torch.rsqrt on the card
+__device__ __forceinline__ float rsqrtv(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrtv(double x) { return rsqrt(x); }
 
 template <typename T>
 __device__ __forceinline__ T clip(T x, T lo, T hi) {
@@ -281,26 +317,105 @@ __device__ __forceinline__ void add_act_sym6(const T R[9], const T p[3],
     add_act_sym6_dense(R, p, Ha, Hpar);
 }
 
+// Inverse of the SPD KK x KK block D (row-major) by unrolled Cholesky,
+// triangular inverse and M^T M: batched_spatial.spd_inv, operation for
+// operation (rsqrt of the pivot, L[j][j] = s * rsqrt(s)).
+template <typename T, int KK>
+__device__ void spd_inv_k(const T* D, T* out) {
+  T L[KK * KK], M[KK * KK], Ldi[KK];
+#pragma unroll
+  for (int j = 0; j < KK; ++j) {
+    T s = D[j * KK + j];
+#pragma unroll
+    for (int p = 0; p < j; ++p) s = s - L[j * KK + p] * L[j * KK + p];
+    Ldi[j] = rsqrtv(s);
+    L[j * KK + j] = s * Ldi[j];
+#pragma unroll
+    for (int i = j + 1; i < KK; ++i) {
+      T t = D[i * KK + j];
+#pragma unroll
+      for (int p = 0; p < j; ++p) t = t - L[i * KK + p] * L[j * KK + p];
+      L[i * KK + j] = t * Ldi[j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KK; ++i) {
+    M[i * KK + i] = Ldi[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      T s = L[i * KK + j] * M[j * KK + j];
+#pragma unroll
+      for (int p = j + 1; p < i; ++p) s = s + L[i * KK + p] * M[p * KK + j];
+      M[i * KK + j] = -s * Ldi[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KK; ++i) {
+#pragma unroll
+    for (int j = 0; j < KK; ++j) {
+      const int lo = i > j ? i : j;
+      T s = M[lo * KK + i] * M[lo * KK + j];
+#pragma unroll
+      for (int p = lo + 1; p < KK; ++p) s = s + M[p * KK + i] * M[p * KK + j];
+      out[i * KK + j] = s;
+    }
+  }
+}
+
 template <typename T>
+__device__ __forceinline__ void spd_inv(int k, const T* D, T* out) {
+  switch (k) {
+    case 1: out[0] = T(1) / D[0]; break;
+    case 2: spd_inv_k<T, 2>(D, out); break;
+    case 3: spd_inv_k<T, 3>(D, out); break;
+    case 4: spd_inv_k<T, 4>(D, out); break;
+    case 5: spd_inv_k<T, 5>(D, out); break;
+    default: spd_inv_k<T, 6>(D, out); break;
+  }
+}
+
+// MAXJ joints and MAXNV dofs at most.  MULTI = false: every joint has one
+// dof (k is the constant 1, so the dof loops vanish and D is a scalar).
+template <typename T, int MAXJ, int MAXNV, bool MULTI>
 __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
                                   const __grid_constant__ LoikPtrs<T> P) {
   const int B = cfg.B;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
   const int N = cfg.N, NC = cfg.NC, K = cfg.check_interval;
+  // dof-slot stride of the padded tensors and of S
+  const int KP = MULTI ? cfg.nv_max : 1;
+  if (b >= B) return;
   // element f of problem b in a trailing-batch tensor
 #define AT(ptr, f) (ptr)[(size_t)(f) * B + b]
+  // dofs of joint i; entry (r, c) of its 6 x k motion subspace
+#define NVS(i) (MULTI ? cfg.nvs[i] : 1)
+#define SS(i, r, c) P.S[((i) * 6 + (r)) * KP + (c)]
 
   const T rho = T(cfg.rho);
   const T tol_abs = T(cfg.tol_abs), tol_rel = T(cfg.tol_rel);
   const T tol_pinf = T(cfg.tol_primal_inf), tol_tail = T(cfg.tol_tail_solve);
   const T eq_scale = T(cfg.mu_eq_scale);
 
-  // the H half of the Riccati sweep, hoisted per body call
-  T H[LOIK_MAX_JOINTS][36];
-  T U[LOIK_MAX_JOINTS][6], UDinv[LOIK_MAX_JOINTS][6], Dinv[LOIK_MAX_JOINTS];
+  // the H half of the Riccati sweep, hoisted per body call; U and U D^-1
+  // are stored by dof (one 6-vector per column), D^-1 at an offset of k^2
+  constexpr int MAXD = MULTI ? 6 * MAXNV : MAXNV;
+  T H[MAXJ][36];
+  T U[MAXNV][6], UDinv[MAXNV][6], Dinv[MAXD];
   // per-iteration recursions
-  T pl[LOIK_MAX_JOINTS][6], rt[LOIK_MAX_JOINTS], facc[LOIK_MAX_JOINTS][6];
+  T pl[MAXJ][6], rt[MAXNV], facc[MAXJ][6];
+  // first dof of each joint and the offset of its D^-1 block (both are the
+  // joint's index when every joint has one dof)
+  int dof0[MULTI ? MAXJ : 1], blk0[MULTI ? MAXJ : 1];
+  if constexpr (MULTI) {
+    for (int i = 0, d = 0, q = 0; i < N; ++i) {
+      dof0[i] = d;
+      blk0[i] = q;
+      d += cfg.nvs[i];
+      q += cfg.nvs[i] * cfg.nvs[i];
+    }
+  }
+#define DOF0(i) (MULTI ? dof0[i] : (i))
+#define BLK0(i) (MULTI ? blk0[i] : (i))
 
   int it = *P.it_in;
   while (P.running[b]) {
@@ -316,30 +431,53 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
       for (int e = 0; e < 36; ++e) H[c][e] += mu_eq * AT(P.AtA, k * 36 + e);
     }
     for (int i = N - 1; i >= 0; --i) {
-      T s[6];
+      const int k = NVS(i), d0 = DOF0(i), q0 = BLK0(i);
+      // U = H S
+      for (int c = 0; c < k; ++c) {
 #pragma unroll
-      for (int j = 0; j < 6; ++j) s[j] = T(cfg.S[i][j]);
-      T D = T(0);
+        for (int r = 0; r < 6; ++r) {
+          T u = H[i][r * 6 + 0] * SS(i, 0, c);
 #pragma unroll
-      for (int r = 0; r < 6; ++r) {
-        T u = H[i][r * 6 + 0] * s[0];
-#pragma unroll
-        for (int j = 1; j < 6; ++j) u += H[i][r * 6 + j] * s[j];
-        U[i][r] = u;
+          for (int j = 1; j < 6; ++j) u += H[i][r * 6 + j] * SS(i, j, c);
+          U[d0 + c][r] = u;
+        }
       }
+      // D = S^T U + mu_ineq I, then its inverse
+      T D[MULTI ? 36 : 1];
+      for (int a = 0; a < k; ++a) {
+        for (int c = 0; c < k; ++c) {
+          T s = SS(i, 0, a) * U[d0 + c][0];
 #pragma unroll
-      for (int j = 0; j < 6; ++j) D += s[j] * U[i][j];
-      Dinv[i] = T(1) / (D + mu_ineq);
+          for (int j = 1; j < 6; ++j) s += SS(i, j, a) * U[d0 + c][j];
+          D[a * k + c] = s + mu_ineq * (a == c ? T(1) : T(0));
+        }
+      }
+      if constexpr (MULTI)
+        spd_inv(k, D, &Dinv[q0]);
+      else
+        Dinv[q0] = T(1) / D[0];
       const int par = cfg.parents[i];
       if (par >= 0) {
         T Ha[36], R[9], pp[3];
+        // U D^-1
+        for (int c = 0; c < k; ++c) {
 #pragma unroll
-        for (int r = 0; r < 6; ++r) UDinv[i][r] = U[i][r] * Dinv[i];
+          for (int r = 0; r < 6; ++r) {
+            T s = U[d0][r] * Dinv[q0 + c];
+            for (int j = 1; j < k; ++j) s += U[d0 + j][r] * Dinv[q0 + j * k + c];
+            UDinv[d0 + c][r] = s;
+          }
+        }
+        // Ha = H - (U D^-1) U^T
 #pragma unroll
-        for (int r = 0; r < 6; ++r)
+        for (int r = 0; r < 6; ++r) {
 #pragma unroll
-          for (int c = 0; c < 6; ++c)
-            Ha[r * 6 + c] = H[i][r * 6 + c] - UDinv[i][r] * U[i][c];
+          for (int c = 0; c < 6; ++c) {
+            T s = UDinv[d0][r] * U[d0][c];
+            for (int j = 1; j < k; ++j) s += UDinv[d0 + j][r] * U[d0 + j][c];
+            Ha[r * 6 + c] = H[i][r * 6 + c] - s;
+          }
+        }
         load_liMi(P, B, b, i, R, pp);
         add_act_sym6(R, pp, Ha, H[par]);
       }
@@ -355,9 +493,12 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
 
       // FwdPass1
       for (int i = 0; i < N; ++i) {
-        T r = AT(P.w, i) - mu_ineq * AT(P.z, i);
-        if (P.r_offset) r += AT(P.r_offset, i);
-        rt[i] = r;
+        const int k = NVS(i), d0 = DOF0(i);
+        for (int a = 0; a < k; ++a) {
+          T r = AT(P.w, i * KP + a) - mu_ineq * AT(P.z, i * KP + a);
+          if (P.r_offset) r += AT(P.r_offset, i * KP + a);
+          rt[d0 + a] = r;
+        }
 #pragma unroll
         for (int e = 0; e < 6; ++e)
           pl[i][e] = -rho * AT(P.vis, i * 6 + e) - AT(P.Hv, i * 6 + e);
@@ -371,15 +512,22 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
 
       // BwdPass: the p/r recursion, leaf to root
       for (int i = N - 1; i >= 0; --i) {
-        T sp = T(cfg.S[i][0]) * pl[i][0];
+        const int k = NVS(i), d0 = DOF0(i);
+        for (int a = 0; a < k; ++a) {
+          T sp = SS(i, 0, a) * pl[i][0];
 #pragma unroll
-        for (int j = 1; j < 6; ++j) sp += T(cfg.S[i][j]) * pl[i][j];
-        rt[i] = rt[i] + sp;
+          for (int j = 1; j < 6; ++j) sp += SS(i, j, a) * pl[i][j];
+          rt[d0 + a] = rt[d0 + a] + sp;
+        }
         const int par = cfg.parents[i];
         if (par >= 0) {
           T pa[6], f[6], R[9], pp[3];
 #pragma unroll
-          for (int e = 0; e < 6; ++e) pa[e] = pl[i][e] - UDinv[i][e] * rt[i];
+          for (int e = 0; e < 6; ++e) {
+            T s = UDinv[d0][e] * rt[d0];
+            for (int j = 1; j < k; ++j) s += UDinv[d0 + j][e] * rt[d0 + j];
+            pa[e] = pl[i][e] - s;
+          }
           load_liMi(P, B, b, i, R, pp);
           act_force(R, pp, pa, f);
 #pragma unroll
@@ -391,20 +539,32 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
       // parent's new velocity is read back from the state
       T dvis = T(0), dfis = T(0), dnu = T(0), nu_inf = T(0);
       for (int i = 0; i < N; ++i) {
+        const int k = NVS(i), d0 = DOF0(i), q0 = BLK0(i);
         const int par = cfg.parents[i];
         T vpar[6], vloc[6], R[9], pp[3];
 #pragma unroll
         for (int e = 0; e < 6; ++e) vpar[e] = par >= 0 ? AT(P.vis, par * 6 + e) : T(0);
         load_liMi(P, B, b, i, R, pp);
         act_inv_motion(R, pp, vpar, vloc);
-        T rhs = U[i][0] * vloc[0];
+        T rhs[MULTI ? 6 : 1], nuv[MULTI ? 6 : 1];
+        for (int a = 0; a < k; ++a) {
+          T s = U[d0 + a][0] * vloc[0];
 #pragma unroll
-        for (int j = 1; j < 6; ++j) rhs += U[i][j] * vloc[j];
-        rhs += rt[i];
-        const T nui = -(Dinv[i] * rhs);
+          for (int j = 1; j < 6; ++j) s += U[d0 + a][j] * vloc[j];
+          rhs[a] = s + rt[d0 + a];
+        }
+        for (int a = 0; a < k; ++a) {
+          T s = Dinv[q0 + a * k] * rhs[0];
+          for (int j = 1; j < k; ++j) s += Dinv[q0 + a * k + j] * rhs[j];
+          nuv[a] = -s;
+        }
         T v[6];
 #pragma unroll
-        for (int e = 0; e < 6; ++e) v[e] = vloc[e] + T(cfg.S[i][e]) * nui;
+        for (int e = 0; e < 6; ++e) {
+          T s = SS(i, e, 0) * nuv[0];
+          for (int j = 1; j < k; ++j) s += SS(i, e, j) * nuv[j];
+          v[e] = vloc[e] + s;
+        }
 #pragma unroll
         for (int r = 0; r < 6; ++r) {
           T f = H[i][r * 6 + 0] * v[0];
@@ -418,28 +578,34 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
           AT(P.vis, i * 6 + r) = v[r];
           AT(P.fis, i * 6 + r) = f;
         }
-        if (checks) {
-          dnu = nmax(dnu, absv(nui - AT(P.nu, i)));
-          nu_inf = nmax(nu_inf, absv(nui));
+        for (int a = 0; a < k; ++a) {
+          if (checks) {
+            dnu = nmax(dnu, absv(nuv[a] - AT(P.nu, i * KP + a)));
+            nu_inf = nmax(nu_inf, absv(nuv[a]));
+          }
+          AT(P.nu, i * KP + a) = nuv[a];
         }
-        AT(P.nu, i) = nui;
       }
 
       // BoxProj and the box-dual update
       T slack = T(0), dw_inf = T(0), ub_dw = T(0), lb_dw = T(0);
       for (int i = 0; i < N; ++i) {
-        const T nui = AT(P.nu, i), wi = AT(P.w, i);
-        const T zi = clip(nui + wi / mu_ineq, AT(P.lb, i), AT(P.ub, i));
-        const T dw = mu_ineq * (nui - zi);
-        if (checks) {
-          dz = nmax(dz, absv(zi - AT(P.z, i)));
-          slack = nmax(slack, absv(nui - zi));
-          dw_inf = nmax(dw_inf, absv(dw));
-          ub_dw += AT(P.ub, i) * nmax(dw, T(0));
-          lb_dw += AT(P.lb, i) * nmin(dw, T(0));
+        const int k = NVS(i);
+        for (int a = 0; a < k; ++a) {
+          const int s = i * KP + a;
+          const T nui = AT(P.nu, s), wi = AT(P.w, s);
+          const T zi = clip(nui + wi / mu_ineq, AT(P.lb, s), AT(P.ub, s));
+          const T dw = mu_ineq * (nui - zi);
+          if (checks) {
+            dz = nmax(dz, absv(zi - AT(P.z, s)));
+            slack = nmax(slack, absv(nui - zi));
+            dw_inf = nmax(dw_inf, absv(dw));
+            ub_dw += AT(P.ub, s) * nmax(dw, T(0));
+            lb_dw += AT(P.lb, s) * nmin(dw, T(0));
+          }
+          AT(P.z, s) = zi;
+          AT(P.w, s) = wi + dw;
         }
-        AT(P.z, i) = zi;
-        AT(P.w, i) = wi + dw;
       }
 
       // DualUpdate of the task duals
@@ -502,14 +668,18 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
       T dfdpa = T(0), fdpa_inf = T(0), dstfw = T(0), stfw_inf = T(0);
       T href_inf = T(0), drv = T(0);
       for (int i = 0; i < N; ++i) {
-        T stf = T(cfg.S[i][0]) * AT(P.fis, i * 6 + 0);
+        const int k = NVS(i);
+        for (int a = 0; a < k; ++a) {
+          const int s = i * KP + a;
+          T stf = SS(i, 0, a) * AT(P.fis, i * 6 + 0);
 #pragma unroll
-        for (int j = 1; j < 6; ++j) stf += T(cfg.S[i][j]) * AT(P.fis, i * 6 + j);
-        stf += AT(P.w, i);
-        if (P.r_offset) stf += AT(P.r_offset, i);
-        dstfw = nmax(dstfw, absv(stf - AT(P.stfw, i)));
-        stfw_inf = nmax(stfw_inf, absv(stf));
-        AT(P.stfw, i) = stf;
+          for (int j = 1; j < 6; ++j) stf += SS(i, j, a) * AT(P.fis, i * 6 + j);
+          stf += AT(P.w, s);
+          if (P.r_offset) stf += AT(P.r_offset, s);
+          dstfw = nmax(dstfw, absv(stf - AT(P.stfw, s)));
+          stfw_inf = nmax(stfw_inf, absv(stf));
+          AT(P.stfw, s) = stf;
+        }
 #pragma unroll
         for (int r = 0; r < 6; ++r) {
           T hv = AT(P.H_ref, i * 36 + r * 6 + 0) * AT(P.vis, i * 6 + 0);
@@ -576,6 +746,10 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
   }
   atomicMax(P.it, it);
 #undef AT
+#undef NVS
+#undef SS
+#undef DOF0
+#undef BLK0
 }
 
 template <typename T>
@@ -583,8 +757,15 @@ static int launch(const LoikConfig* cfg, void* const* ptrs, int n_ptrs,
                   void* stream) {
   if (n_ptrs != P_COUNT || cfg->N < 1 || cfg->N > LOIK_MAX_JOINTS ||
       cfg->NC < 1 || cfg->NC > LOIK_MAX_CONSTRAINTS || cfg->B < 1 ||
-      cfg->threads < 1 || cfg->threads > 1024 || cfg->check_interval < 1)
+      cfg->threads < 1 || cfg->threads > 1024 || cfg->check_interval < 1 ||
+      cfg->nv_max < 1 || cfg->nv_max > 6)
     return (int)cudaErrorInvalidValue;
+  int nv = 0;
+  for (int i = 0; i < cfg->N; ++i) {
+    if (cfg->nvs[i] < 1 || cfg->nvs[i] > cfg->nv_max) return (int)cudaErrorInvalidValue;
+    nv += cfg->nvs[i];
+  }
+  if (nv > LOIK_MAX_NV) return (int)cudaErrorInvalidValue;
   LoikPtrs<T> P;
   P.vis = (T*)ptrs[P_VIS];
   P.fis = (T*)ptrs[P_FIS];
@@ -625,9 +806,15 @@ static int launch(const LoikConfig* cfg, void* const* ptrs, int n_ptrs,
   P.tol_scale_dual = (const T*)ptrs[P_TOL_SCALE_DUAL];
   P.liMi_R = (const T*)ptrs[P_LIMI_R];
   P.liMi_p = (const T*)ptrs[P_LIMI_P];
+  P.S = (const T*)ptrs[P_S];
   P.it_in = (const int32_t*)ptrs[P_IT_IN];
   const int blocks = (cfg->B + cfg->threads - 1) / cfg->threads;
-  fused_admm_kernel<T><<<blocks, cfg->threads, 0, (cudaStream_t)stream>>>(*cfg, P);
+  if (cfg->nv_max == 1 && cfg->N <= LOIK_SMALL_JOINTS)
+    fused_admm_kernel<T, LOIK_SMALL_JOINTS, LOIK_SMALL_JOINTS, false>
+        <<<blocks, cfg->threads, 0, (cudaStream_t)stream>>>(*cfg, P);
+  else
+    fused_admm_kernel<T, LOIK_MAX_JOINTS, LOIK_MAX_NV, true>
+        <<<blocks, cfg->threads, 0, (cudaStream_t)stream>>>(*cfg, P);
   return (int)cudaGetLastError();
 }
 
@@ -645,9 +832,10 @@ int loik_fused_admm_f64(const LoikConfig* cfg, void* const* ptrs, int n_ptrs,
 }
 
 // The compile-time layout the wrapper must agree with.
-void loik_fused_admm_abi(int* max_joints, int* max_constraints, int* n_ptrs,
-                         int* config_bytes) {
+void loik_fused_admm_abi(int* max_joints, int* max_nv, int* max_constraints,
+                         int* n_ptrs, int* config_bytes) {
   *max_joints = LOIK_MAX_JOINTS;
+  *max_nv = LOIK_MAX_NV;
   *max_constraints = LOIK_MAX_CONSTRAINTS;
   *n_ptrs = P_COUNT;
   *config_bytes = (int)sizeof(LoikConfig);

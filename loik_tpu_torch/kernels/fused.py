@@ -13,8 +13,22 @@ A build or launch failure raises; it is never turned into the eager loop.
 Preconditions of the kernel (`fused_eligibility` names the first one a call
 breaks): no logging, no verbose, float32 on the public path (the kernel
 also has a float64 instantiation, reachable through `fused_solve_loop`),
-1-dof joints (nv_max == 1), at most MAX_JOINTS joints and MAX_CONSTRAINTS
-constraints, and 1..1024 threads per block.
+constant motion subspaces (no universal, spherical-ZYX or mimic-pair
+joint), at most MAX_JOINTS joints with at most MAX_NV dofs in all (joints of
+1 to 6 dofs: D = S'HS + mu I is a k x k block inverted in the kernel),
+at most MAX_CONSTRAINTS constraints, and 1..1024 threads per block.
+
+What bounds it: latency, far above either roof (its floor is the bytes it
+must move, a few KB per problem; chip_smoke.py computes it per run).  One
+thread per problem walks a long data-dependent chain of tiny 6x6 products
+with its working set in local memory (ptxas: a stack frame of 3968 B in
+float and 7936 B in double for trees of up to 16 one-dof joints, 11840 B and
+23360 B for the general instantiation at the caps of 40 joints and 48 dofs,
+no spills; PERF.md), so the card's threads are few and each waits on its own
+loads.
+The motion subspaces are one small (N, 6, nv_max) device tensor per tree,
+built once and kept (`_subspace_operand`), so a launch reads nothing back
+from the device and packs only ints and six doubles on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import warnings
+import weakref
 from typing import Optional
 
 import torch
@@ -31,9 +46,10 @@ from ..problem import IkProblem, validate_problem
 from ..solver.solve import _as_batch, _solve_impl, _solve_loop
 from ..solver.state import PreparedProblem, SolverState, SolveResult
 
-# compile-time caps of csrc/fused_admm.cu (LOIK_MAX_JOINTS /
+# compile-time caps of csrc/fused_admm.cu (LOIK_MAX_JOINTS / LOIK_MAX_NV /
 # LOIK_MAX_CONSTRAINTS); checked against the built library at first launch
-MAX_JOINTS = 16
+MAX_JOINTS = 40
+MAX_NV = 48
 MAX_CONSTRAINTS = 8
 
 # number of kernel launches in this process: a run can read it to show that
@@ -57,8 +73,8 @@ _FIELD_DTYPES = {
     "dual_infeasible": torch.bool, "in_tail": torch.bool, "running": torch.bool,
     "it": torch.int32,
 }
-# state fields, problem fields, optional fields, liMi_R, liMi_p, input `it`
-_N_PTRS = len(_STATE_FIELDS) + len(_PROB_FIELDS) + len(_OPTIONAL_FIELDS) + 3
+# state fields, problem fields, optional fields, liMi_R, liMi_p, S, input `it`
+_N_PTRS = len(_STATE_FIELDS) + len(_PROB_FIELDS) + len(_OPTIONAL_FIELDS) + 4
 
 
 class _LoikConfig(ctypes.Structure):
@@ -66,12 +82,12 @@ class _LoikConfig(ctypes.Structure):
 
     _fields_ = [
         ("B", ctypes.c_int), ("N", ctypes.c_int), ("NC", ctypes.c_int),
-        ("threads", ctypes.c_int),
+        ("nv_max", ctypes.c_int), ("threads", ctypes.c_int),
         ("max_iter", ctypes.c_int), ("check_interval", ctypes.c_int),
         ("check_feasibility", ctypes.c_int), ("tail_solve", ctypes.c_int),
         ("parents", ctypes.c_int * MAX_JOINTS),
+        ("nvs", ctypes.c_int * MAX_JOINTS),
         ("clinks", ctypes.c_int * MAX_CONSTRAINTS),
-        ("S", (ctypes.c_double * 6) * MAX_JOINTS),
         ("rho", ctypes.c_double), ("tol_abs", ctypes.c_double),
         ("tol_rel", ctypes.c_double), ("tol_primal_inf", ctypes.c_double),
         ("tol_tail_solve", ctypes.c_double), ("mu_eq_scale", ctypes.c_double),
@@ -92,18 +108,18 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
     lib.loik_fused_admm_abi.restype = None
     lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
     lib.loik_cuda_error_string.restype = ctypes.c_char_p
-    abi = [ctypes.c_int() for _ in range(4)]
+    abi = [ctypes.c_int() for _ in range(5)]
     lib.loik_fused_admm_abi(*[ctypes.byref(x) for x in abi])
-    want = (MAX_JOINTS, MAX_CONSTRAINTS, _N_PTRS, ctypes.sizeof(_LoikConfig))
+    want = (MAX_JOINTS, MAX_NV, MAX_CONSTRAINTS, _N_PTRS, ctypes.sizeof(_LoikConfig))
     if tuple(x.value for x in abi) != want:
         raise RuntimeError(
             f"kernel library layout {tuple(x.value for x in abi)} (max joints, "
-            f"max constraints, pointers, config bytes) does not match the "
-            f"wrapper's {want}"
+            f"max dofs, max constraints, pointers, config bytes) does not match "
+            f"the wrapper's {want}"
         )
     return lib
 
@@ -125,10 +141,9 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
     is the eager loop.  The batch need not divide by ``batch_tile``: the
     kernel masks the ragged last block.
 
-    loik_tpu also refuses configuration-dependent motion subspaces and
-    per-problem ``S_all``; neither can reach this package yet (its tree
-    admits only constant-subspace joints and its PreparedProblem has no
-    ``S_all``), and they come back with ROADMAP queue 1 items 7 and 9."""
+    loik_tpu also refuses per-problem ``S_all``; that cannot reach this
+    package yet (its PreparedProblem has no ``S_all``) and comes back with
+    the mixed super-batch (ROADMAP queue 1 item 9)."""
     if params.logging:
         return False, ("params.logging is set — the fused kernel has no "
                        "per-iteration log arrays")
@@ -139,13 +154,16 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
         return False, (f"dtype {dtype} != torch.float32 (the public fused "
                        "path is float32; use the delta-duals refinement for "
                        "tight tolerances)")
-    if tree.nv_max > 1:
-        return False, (f"joints with {tree.nv_max} dofs: the kernel handles "
-                       "1-dof joints only (scalar D = S'HS + mu; ROADMAP "
-                       "queue 2 K5)")
+    if tree.has_q_dependent_S:
+        return False, ("tree has configuration-dependent motion subspaces "
+                       "(universal/spherical-ZYX/mimic joints): the kernel "
+                       "takes one constant S per tree")
     if tree.njoints > MAX_JOINTS:
         return False, (f"{tree.njoints} joints exceed the kernel's cap of "
                        f"{MAX_JOINTS} (LOIK_MAX_JOINTS)")
+    if tree.nv > MAX_NV:
+        return False, (f"{tree.nv} dofs exceed the kernel's cap of "
+                       f"{MAX_NV} (LOIK_MAX_NV)")
     if num_constraints > MAX_CONSTRAINTS:
         return False, (f"{num_constraints} constraints exceed the kernel's "
                        f"cap of {MAX_CONSTRAINTS} (LOIK_MAX_CONSTRAINTS)")
@@ -191,6 +209,26 @@ def resolve_fused(fused, tree, params: SolverParams, B: int, batch_tile: int,
     return bool(fused)
 
 
+# (id(tree), dtype) -> (weak reference to the tree, its S operand)
+_S_OPERANDS: dict = {}
+
+
+def _subspace_operand(tree, dtype) -> torch.Tensor:
+    """The kernel's S operand: every joint's constant motion subspace,
+    zero-padded to (N, 6, nv_max), in ``dtype`` on the tree's device.  Built
+    once per tree object and dtype; a tree is immutable, and the entry goes
+    when the tree does.  (`KinematicTree.to` returns the tree itself when
+    nothing changes, so a float32 tree on the card keeps its operand from
+    solve to solve.)"""
+    key = (id(tree), dtype)
+    hit = _S_OPERANDS.get(key)
+    if hit is not None and hit[0]() is tree:
+        return hit[1]
+    S = tree.joint_S_padded().to(dtype).contiguous()
+    _S_OPERANDS[key] = (weakref.ref(tree, lambda _: _S_OPERANDS.pop(key, None)), S)
+    return S
+
+
 def _launch(tree, params: SolverParams, prob: PreparedProblem,
             st: SolverState, batch_tile: int) -> SolverState:
     """Launch the kernel on clones of the state; returns the final state."""
@@ -216,13 +254,15 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     inputs += [None if getattr(prob, n) is None else operand(n, getattr(prob, n), dtype)
                for n in _OPTIONAL_FIELDS]
     inputs += [operand("liMi_R", st.liMi_R, dtype), operand("liMi_p", st.liMi_p, dtype),
+               operand("S", _subspace_operand(tree, dtype), dtype),
                operand("it", st.it, torch.int32)]
     tensors = [out[n] for n in _STATE_FIELDS] + inputs
     ptrs = (ctypes.c_void_p * _N_PTRS)(
         *[None if t is None else t.data_ptr() for t in tensors])
 
     cfg = _LoikConfig(
-        B=B, N=N, NC=NC, threads=batch_tile, max_iter=params.max_iter,
+        B=B, N=N, NC=NC, nv_max=tree.nv_max, threads=batch_tile,
+        max_iter=params.max_iter,
         check_interval=params.check_interval,
         check_feasibility=int(params.check_feasibility),
         tail_solve=int(params.tail_solve),
@@ -231,15 +271,9 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
         tol_tail_solve=params.tol_tail_solve,
         mu_eq_scale=params.mu_equality_scale_factor,
     )
-    for i, par in enumerate(tree.parents):
-        cfg.parents[i] = par
-    for k, c in enumerate(prob.constraint_links):
-        cfg.clinks[k] = c
-    # S is iteration-constant data: (N, 6) on the host, by value to the kernel
-    S = torch.stack([tree.joint_S(i)[:, 0] for i in range(N)]).double().cpu()
-    for i in range(N):
-        for j in range(6):
-            cfg.S[i][j] = float(S[i, j])
+    cfg.parents[:N] = tree.parents
+    cfg.nvs[:N] = tree.nvs
+    cfg.clinks[:NC] = prob.constraint_links
 
     fn = lib.loik_fused_admm_f32 if dtype == torch.float32 else lib.loik_fused_admm_f64
     stream = torch.cuda.current_stream(dev).cuda_stream

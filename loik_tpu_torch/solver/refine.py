@@ -28,11 +28,13 @@ from .state import SolveResult, SolverState
 
 def default_batch_tile(njoints: int) -> int:
     """Threads per block of the fused kernel.  One thread owns one problem,
-    and at the flagship batch (16384 problems) 128 threads per block give
-    128 blocks: one per SM on a 132-SM H100.  The per-thread working set
-    lives in local memory, so the count does not depend on njoints within
-    the kernel's joint cap."""
-    return 128
+    so small blocks spread a batch over more of the 132 SMs: 64 threads give
+    talos' 4096 problems 64 blocks where 128 gave 32.  Measured on an H100
+    at 32, 64, 128 and 256 threads (chip_smoke.py prints the four times per
+    path), 64 is the fastest or within the spread on panda_arm, solo12 and
+    talos alike.  The per-thread working set lives in local memory, so the
+    count does not depend on njoints within the kernel's joint cap."""
+    return 64
 
 
 def _cast_state(st: SolverState, dtype) -> SolverState:
@@ -86,7 +88,16 @@ def solve_delta_duals(
 
     fused: kernel policy for both float32 stages (None | True | False |
     'require', `kernels.fused.resolve_fused`).  Returns results in the
-    original space with a full-space state (warm-startable)."""
+    original space with a full-space state (warm-startable).
+
+    Constant-subspace trees only, as in loik_tpu (whose answer for
+    universal / spherical-ZYX / mimic-pair joints is `solve_two_stage`)."""
+    if tree.has_q_dependent_S:
+        raise ValueError(
+            "solve_delta_duals supports constant motion subspaces only; "
+            "this tree has universal, spherical-ZYX or mimic-pair joints "
+            "(use solver.solve)"
+        )
     q = _as_batch(tree, q)
     validate_problem(tree, problem)
     if batch_tile is None:

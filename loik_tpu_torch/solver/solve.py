@@ -16,8 +16,10 @@ This eager loop is the plain PyTorch version of the fused CUDA kernel
 kernel is checked against.  Dual infeasibility is not detected, matching the
 optimized reference (loik-loid-optimized.hxx:572-606).
 
-Only constant motion subspaces are handled (the REVOLUTE/PRISMATIC joints of
-`model/tree.py`); the q-dependent branch is ROADMAP queue 1 item 7.
+Joints of any dof count are handled (k x k D blocks through
+`batched_spatial.spd_inv`).  For trees with configuration-dependent motion
+subspaces `_solve_impl` computes the per-problem subspaces once from q
+(`PreparedProblem.S_list`).
 """
 
 from __future__ import annotations
@@ -105,10 +107,30 @@ def fwd_pass_init(tree, q):
 # --------------------------------------------------------------------------- #
 
 
-def _S_lists(tree, dtype):
-    """Per-joint constant motion subspaces (6, k, 1): the trailing axis of 1
+def _S_lists(tree, prob: PreparedProblem, dtype):
+    """Per-joint motion subspaces, exact dof sizes: the prepared problem's
+    per-problem (6, k, B) tiles when the tree has configuration-dependent
+    subspaces, else the constant (6, k, 1), whose trailing axis of 1
     broadcasts against the batch."""
+    if prob.S_list is not None:
+        return list(prob.S_list)
     return [tree.joint_S(i).to(dtype)[:, :, None] for i in range(tree.njoints)]
+
+
+def q_dependent_S_list(tree, q, dtype):
+    """The per-problem subspaces of a tree with configuration-dependent S,
+    from q (B, nq): one exact-size (6, nv_i, B) tile per joint (constant
+    joints are shared across the batch).  Iteration-constant, like liMi."""
+    B = q.shape[0]
+    S_list = []
+    for i in range(tree.njoints):
+        Si = tree.joint_S(i, q).to(dtype)
+        if Si.ndim == 2:  # constant joint: share across the batch
+            Si = Si[:, :, None].expand(Si.shape + (B,))
+        else:             # (B, 6, k) -> (6, k, B)
+            Si = Si.movedim(0, -1)
+        S_list.append(Si)
+    return tuple(S_list)
 
 
 def _h_sweep(tree, prob: PreparedProblem, params: SolverParams,
@@ -174,7 +196,7 @@ def _iteration(tree, prob: PreparedProblem, params: SolverParams, st: SolverStat
     N, K = tree.njoints, tree.nv_max
     dtype, dev = st.vis.dtype, st.vis.device
     B = st.vis.shape[-1]
-    S = h_cache[0] if h_cache is not None else _S_lists(tree, dtype)
+    S = h_cache[0] if h_cache is not None else _S_lists(tree, prob, dtype)
     nvs, parents = tree.nvs, tree.parents
     c_links = prob.constraint_links
     mu_eq = st.mu_eq  # (B,)
@@ -374,7 +396,7 @@ def kkt_residual(tree, prob: PreparedProblem, st: SolverState):
     N, K = tree.njoints, tree.nv_max
     dtype, dev = st.vis.dtype, st.vis.device
     B = st.vis.shape[-1]
-    S = _S_lists(tree, dtype)
+    S = _S_lists(tree, prob, dtype)
 
     fdpa_list = [torch.zeros((6, B), dtype=dtype, device=dev) for _ in range(N)]
     for k, c in enumerate(prob.constraint_links):
@@ -422,7 +444,7 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
             # hoist the Riccati matrix half: (mu_eq, mu_ineq, liMi) are
             # constant across the K micro-iterations, so S and the H-sweep
             # are computed once per body call and shared
-            S_h = _S_lists(tree, st.vis.dtype)
+            S_h = _S_lists(tree, prob, st.vis.dtype)
             hc = (S_h, _h_sweep(tree, prob, params, st, S_h))
         else:
             hc = None
@@ -611,6 +633,9 @@ def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
         dtype = q.dtype
         B = q.shape[0]
         prob = prepare_problem(tree, problem, B, dtype)
+        if tree.has_q_dependent_S:
+            prob = dataclasses.replace(
+                prob, S_list=q_dependent_S_list(tree, q, dtype))
         if warm_state is None:
             st = init_state(tree, B, problem.num_constraints, dtype, q.device)
         else:

@@ -41,6 +41,10 @@ class PreparedProblem:
     # objective): the nu-block of the stage-1 KKT residual in the delta-duals
     # refinement.  It enters FwdPass1's r AND the dual-residual nu-block.
     r_offset: Optional[torch.Tensor] = None
+    # optional per-joint exact-size (6, nv_i, B) motion subspaces for trees
+    # with configuration-dependent S (universal / spherical-ZYX / mimic-pair
+    # joints): computed once per solve from q, like liMi
+    S_list: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 @dataclasses.dataclass(frozen=True)

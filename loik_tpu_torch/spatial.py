@@ -1,7 +1,8 @@
 """Batched spatial algebra on SE(3), motions (twists) and forces (wrenches).
 
-The pieces of `loik_tpu.spatial` that forward kinematics and the URDF loader
-use, on torch tensors with arbitrary LEADING batch dims:
+The pieces of `loik_tpu.spatial` that forward kinematics, manifold
+integration and the URDF loader use, on torch tensors with arbitrary LEADING
+batch dims:
 
   - SE(3) transform:  pair ``(R, p)`` with ``R (..., 3, 3)`` rotation and
     ``p (..., 3)`` translation, mapping frame B -> frame A ("aMb").
@@ -14,6 +15,7 @@ The solver's trailing-batch forms live in `solver/batched_spatial.py`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LIN = slice(0, 3)
@@ -42,6 +44,59 @@ def rotation_about_axis(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor
     eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand(K.shape)
     aaT = axis[..., :, None] * axis[..., None, :]
     return c * eye + s * K + (1.0 - c) * aaT
+
+
+def rotation_about_axis_cs(axis: torch.Tensor, c: torch.Tensor,
+                           s: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation about a (unit) axis with the angle given as a
+    (cos, sin) pair, the Pinocchio nq=2 unbounded-revolute convention
+    (JointModelRevoluteUnbounded): no trig evaluation, works for any winding.
+    axis (..., 3), c/s (...)."""
+    c = c[..., None, None]
+    s = s[..., None, None]
+    K = skew(axis)
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand(K.shape)
+    aaT = axis[..., :, None] * axis[..., None, :]
+    return c * eye + s * K + (1.0 - c) * aaT
+
+
+def _small_angle_cutoff(dtype: torch.dtype) -> float:
+    """theta^2 below which the Taylor branch beats the closed form.  The
+    closed-form coefficients (1-cos t)/t^2 and (t-sin t)/t^3 cancel with
+    relative error ~eps/t^2, while the two-term Taylor truncates at ~t^4;
+    the crossover is t^2 ~ sqrt(eps), so it depends on the dtype (1.7e-3 in
+    float32, 7e-8 in float64)."""
+    return 5.0 * float(np.sqrt(torch.finfo(dtype).eps))
+
+
+def se2_exp(dx, dy, dth):
+    """SE(2) exponential: planar tangent (dx, dy, dtheta) -> (cos, sin, tx, ty).
+
+    t = V(dtheta) @ (dx, dy) with V the planar left-Jacobian
+    [[sin t/t, -(1-cos t)/t], [(1-cos t)/t, sin t/t]]; Taylor-guarded at
+    t = 0 with the dtype-aware cutoff (`_small_angle_cutoff` on t^2)."""
+    th2 = dth * dth
+    small = th2 < _small_angle_cutoff(dth.dtype)
+    safe = torch.where(small, torch.ones_like(dth), dth)
+    c, s = torch.cos(dth), torch.sin(dth)
+    a = torch.where(small, 1.0 - th2 / 6.0, s / safe)           # sin t/t
+    b = torch.where(small, 0.5 * dth - th2 * dth / 24.0, (1.0 - c) / safe)
+    tx = a * dx - b * dy
+    ty = b * dx + a * dy
+    return c, s, tx, ty
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (x, y, z, w), the Pinocchio/Eigen coefficient order, to a
+    rotation matrix.  q (..., 4), normalized internally."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
 
 
 def rpy_to_rotmat(rpy: torch.Tensor) -> torch.Tensor:
@@ -93,3 +148,59 @@ def act_force(R, p, f):
     lin = _mv(R, f[..., LIN])
     ang = _mv(R, f[..., ANG]) + torch.linalg.cross(p.expand_as(lin), lin)
     return torch.cat([lin, ang], dim=-1)
+
+
+def exp3_quat(w: torch.Tensor) -> torch.Tensor:
+    """SO(3) exponential: rotation vector (..., 3) -> unit quaternion
+    (x, y, z, w).  Taylor-guarded near 0 with the dtype-aware cutoff."""
+    theta2 = (w * w).sum(-1)
+    small = theta2 < _small_angle_cutoff(w.dtype)
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    # sin(theta/2)/theta -> 1/2 - theta^2/48
+    s = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(0.5 * theta) / theta)
+    # cos(theta/2) -> 1 - theta^2/8 + theta^4/384
+    c = torch.where(small, 1.0 - theta2 / 8.0 + theta2 * theta2 / 384.0,
+                    torch.cos(0.5 * theta))
+    return torch.cat([s[..., None] * w, c[..., None]], dim=-1)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (x, y, z, w) quaternions; composes rotations as
+    R(q1 * q2) = R(q1) @ R(q2)."""
+    x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def _so3_coeffs(w: torch.Tensor):
+    """(a, b, d, K, KK) with a = sin t/t, b = (1-cos t)/t^2,
+    d = (t-sin t)/t^3 for t = |w|, Taylor-guarded (`_small_angle_cutoff`)."""
+    theta2 = (w * w).sum(-1)
+    small = theta2 < _small_angle_cutoff(w.dtype)
+    safe2 = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(safe2)
+    c, s = torch.cos(theta), torch.sin(theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0, s / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - c) / safe2)
+    d = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - s) / (safe2 * theta))
+    K = skew(w)
+    return a, b, d, K, K @ K
+
+
+def se3_exp_translation(v: torch.Tensor) -> torch.Tensor:
+    """Translation part of the SE(3) exponential: p = V(w) @ u with V the
+    left-Jacobian of SO(3) (the rotation comes from `exp3_quat`: callers
+    that integrate a quaternion state need only this half)."""
+    u, w = v[..., LIN], v[..., ANG]
+    _, b, d, K, KK = _so3_coeffs(w)
+    V = (torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
+         + b[..., None, None] * K + d[..., None, None] * KK)
+    return _mv(V, u)

@@ -37,6 +37,8 @@ from loik_tpu.kernels import solve_fused as jsolve_fused
 from loik_tpu.params import SolverParams as JParams
 from loik_tpu_torch.kernels import _build
 from loik_tpu_torch.kernels import fused
+from loik_tpu_torch.model import builders
+from loik_tpu_torch.model import tree as ttree
 
 from tests.test_torch_kernel import CSRC, prepared, states_equal
 from tests.test_torch_model import pair, q_batch, shared_fk
@@ -107,31 +109,30 @@ def test_rejections():
             fused.fused_solve_loop(tree, params, prob, st)
         with pytest.raises(ValueError, match=match):
             fused.solve_fused(tree, params, q, problem)
-    tree64 = lt.robots.panda_arm()
+    tree64 = lt.robots.panda_arm(device="cpu")
     with pytest.raises(ValueError, match="float32-only"):
         fused.solve_fused(tree64, lt.SolverParams(), torch.zeros(4, 7, dtype=torch.float64),
                           lt.make_problem(tree64, (6,)))
 
 
-class _Tall:
-    """A stand-in tree for shapes the port's tree cannot be built with yet."""
-
-    def __init__(self, njoints, nv_max=1):
-        self.njoints, self.nv_max = njoints, nv_max
+def _chain(n, jtype):
+    return builders.serial_chain(n, jtype, device="cpu")
 
 
 @pytest.mark.parametrize("case,reason", [
     (dict(params=dict(logging=True)), "logging"),
     (dict(params=dict(verbose=True)), "verbose"),
     (dict(dtype=torch.float64), "float32"),
-    (dict(tree=_Tall(8, nv_max=6)), "1-dof joints only"),
-    (dict(tree=_Tall(fused.MAX_JOINTS + 1)), "LOIK_MAX_JOINTS"),
+    (dict(tree=lambda: _chain(fused.MAX_JOINTS + 1, ttree.REVOLUTE)), "LOIK_MAX_JOINTS"),
+    (dict(tree=lambda: _chain(17, ttree.SPHERICAL)), "LOIK_MAX_NV"),
+    (dict(tree=lambda: lt.robots.mobile_ur5("float32", device="cpu")),
+     "configuration-dependent motion subspaces"),
     (dict(num_constraints=fused.MAX_CONSTRAINTS + 1), "LOIK_MAX_CONSTRAINTS"),
     (dict(batch_tile=0), "CUDA block size"),
     (dict(batch_tile=2048), "CUDA block size"),
 ])
 def test_eligibility_reasons(case, reason):
-    tree = case.get("tree", lt.robots.panda_arm("float32"))
+    tree = case["tree"]() if "tree" in case else lt.robots.panda_arm("float32", device="cpu")
     ok, why = fused.fused_eligibility(
         tree, lt.SolverParams(**case.get("params", {})), 100,
         case.get("batch_tile", 128), case.get("dtype"),
@@ -140,15 +141,28 @@ def test_eligibility_reasons(case, reason):
 
 
 def test_eligible_shapes():
-    tree = lt.robots.panda()
+    tree = lt.robots.panda(device="cpu")
     for B, bt in ((16384, 128), (1000, 128), (7, 1024)):
         assert fused.fused_eligibility(tree, lt.SolverParams(), B, bt, torch.float32) == (True, None)
     assert fused.fused_eligibility(tree, lt.SolverParams(), 8, 8, None)[0]
 
 
+@pytest.mark.parametrize("tree,num_constraints", [
+    (lambda: lt.robots.solo12("float32", device="cpu"), 5),
+    (lambda: lt.robots.talos("float32", device="cpu"), 2),
+    (lambda: lt.robots.talos_like("float32", device="cpu"), 2),
+    (lambda: _chain(fused.MAX_JOINTS, ttree.REVOLUTE), 1),
+    (lambda: _chain(8, ttree.FREE_FLYER), fused.MAX_CONSTRAINTS),
+], ids=["solo12", "talos", "talos_like", "40 joints", "48 dofs"])
+def test_eligible_trees(tree, num_constraints):
+    """Joints of up to 6 dofs and trees up to the caps are eligible."""
+    assert fused.fused_eligibility(tree(), lt.SolverParams(), 4096, 128, torch.float32,
+                                   num_constraints) == (True, None)
+
+
 def test_resolve_fused_policy(monkeypatch):
     monkeypatch.setattr(fused, "_fallback_warned", set())
-    tree, ok_params = lt.robots.panda_arm("float32"), lt.SolverParams()
+    tree, ok_params = lt.robots.panda_arm("float32", device="cpu"), lt.SolverParams()
     bad = lt.SolverParams(logging=True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -170,7 +184,7 @@ def test_resolve_fused_policy(monkeypatch):
 def test_no_launches_on_cpu():
     """CPU tensors never reach the kernel: the launch counter stays put
     through every public entry point of the fused path."""
-    tree = lt.robots.panda_arm("float32")
+    tree = lt.robots.panda_arm("float32", device="cpu")
     problem = lt.make_problem(tree, (6,), b=np.array([[0, 0, 0.2, 0, 0, 0]]))
     q = torch.as_tensor(q_batch(tree, 8, seed=2), dtype=torch.float32)
     n0 = fused.LAUNCHES

@@ -40,7 +40,9 @@ def _imported_modules(path):
 def test_the_scan_covers_the_package():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert {"chip_smoke.py", "loik_tpu_torch/__init__.py",
-            "loik_tpu_torch/kernels/fused.py", "loik_tpu_torch/solver/solve.py"} <= names
+            "loik_tpu_torch/kernels/fused.py", "loik_tpu_torch/solver/solve.py",
+            "loik_tpu_torch/model/builders.py", "loik_tpu_torch/model/robots.py",
+            "loik_tpu_torch/model/urdf.py", "loik_tpu_torch/convert.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import loik_tpu_torch as lt
 import loik_tpu_torch.solver.solve  # noqa: F401  (the module; the package exports a function)
 from loik_tpu_torch.kernels import fused
@@ -44,6 +45,15 @@ def prepared(params, B=12, seed=0, dtype=torch.float32, device="cpu"):
     st = tsm._reset_state(tree, params, init_state(tree, B, 1, dtype, device), dtype)
     R, p = tsm.fwd_pass_init(tree, q)
     return tree, prob, dataclasses.replace(st, liMi_R=R, liMi_p=p)
+
+
+def prepared_path(name, B, check_interval, dtype=torch.float32, device="cpu", max_iter=200):
+    """(tree, params, prepared problem, reset state with FK) of one of
+    chip_smoke.py's paths: "flagship", "solo12" or "talos"."""
+    tree, _, problem, params, q = chip_smoke.config(
+        lt, torch, name, dtype, torch.device(device), B, check_interval, max_iter)
+    prob, st = chip_smoke.initial_state(tsm, tree, problem, params, q)
+    return tree, params, prob, st
 
 
 def states_equal(a, b):
@@ -72,6 +82,7 @@ def test_wrapper_layout_matches_cuda_source():
              "delta_x_inf": "dx", "delta_z_inf": "dz"}
     assert state == [short.get(n, n).lower() for n in fused._STATE_FIELDS]
     assert f"#define LOIK_MAX_JOINTS {fused.MAX_JOINTS}" in src
+    assert f"#define LOIK_MAX_NV {fused.MAX_NV}" in src
     assert f"#define LOIK_MAX_CONSTRAINTS {fused.MAX_CONSTRAINTS}" in src
     struct = re.search(r"struct LoikConfig \{(.*?)\};", src, re.S).group(1)
     declared = re.findall(r"(\w+)(?:\[\w+\])*[,;]", struct)
@@ -91,6 +102,53 @@ def test_kernel_matches_eager_loop_on_card(dtype, check_interval):
     torch.cuda.synchronize()
     assert fused.LAUNCHES == n0 + 1
     states_equal(ker, tsm._solve_loop(tree, prob, params, st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,check_interval", [
+    ("solo12", 1000, 1), ("solo12", 1000, 4), ("talos", 300, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_matches_eager_loop_on_card_multi_dof(dtype, name, B, check_interval):
+    """Joints of 6 dofs (k x k D blocks), five constraints on one tree, 33
+    joints: still the eager loop's bits, and padded dof slots stay zero."""
+    _need_card()
+    tree, params, prob, st = prepared_path(name, B, check_interval, dtype, "cuda")
+    n0 = fused.LAUNCHES
+    ker = fused.fused_solve_loop(tree, params, prob, st, batch_tile=64)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 1
+    states_equal(ker, tsm._solve_loop(tree, prob, params, st))
+    for field in ("nu", "z", "w", "stfw"):
+        for i, k in enumerate(tree.nvs):
+            assert not getattr(ker, field)[i, k:].any(), (field, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,check_interval", [("solo12", 2048, 4), ("talos", 512, 1)])
+def test_delta_duals_kernel_path_equals_eager_path_on_card_legged(name, B, check_interval):
+    _need_card()
+    tree, links, problem, params, q = chip_smoke.config(
+        lt, torch, name, torch.float32, torch.device("cuda"), B, check_interval)
+    n0 = fused.LAUNCHES
+    res = lt.solve_delta_duals(tree, params, q, problem, fused="require")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 2
+    ref = lt.solve_delta_duals(tree, params, q, problem, fused=False)
+    for field in ("nu", "z", "vis", "converged", "primal_infeasible", "iterations",
+                  "primal_residual", "dual_residual"):
+        assert torch.equal(getattr(res, field), getattr(ref, field)), field
+    states_equal(res.state, ref.state)
+    assert res.converged.double().mean() > 0.9
+
+
+@pytest.mark.cuda
+def test_subspace_operand_is_built_once_per_tree_on_card():
+    _need_card()
+    tree = lt.robots.solo12("float32", device="cuda")
+    S = fused._subspace_operand(tree, torch.float32)
+    assert S.shape == (13, 6, 6) and S.is_cuda
+    assert fused._subspace_operand(tree, torch.float32) is S
+    assert fused._subspace_operand(tree.astype(torch.float32), torch.float32) is S
 
 
 @pytest.mark.cuda

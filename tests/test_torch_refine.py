@@ -1,7 +1,8 @@
 """The flagship tight-tolerance path: the port's `solve_delta_duals`
 against loik_tpu's `solve_delta_duals(fused=False)` at the flagship
 settings (B=64), the float64 task residual of every problem it certifies,
-and `DiffIkSolver` against the functional forms.
+and `DiffIkSolver` against the functional forms.  The legged robots go
+through the same checks in tests/test_torch_legged.py.
 
 Budgets, as in tests/test_torch_fused.py: the North-star outcome budget
 where both packages do the same arithmetic (loik_tpu op by op, the port fed
@@ -27,23 +28,27 @@ from loik_tpu.params import SolverParams as JParams
 from loik_tpu.solver.refine import solve_delta_duals as jdelta
 from loik_tpu_torch.solver.refine import solve_delta_duals
 
-from tests.test_torch_model import FLAGSHIP, pair, q_batch, shared_fk
+from tests.test_torch_model import FLAGSHIP, LEGGED, LEGGED_K, pair, q_batch, shared_fk
 
 tsm = sys.modules["loik_tpu_torch.solver.solve"]
-B = 64
 
 
-def _certified(res, q, problem_lb, problem_ub):
-    """Max float64 task error |v_6 - b| and box violation over the problems
-    flagged converged, v_6 recomputed from (q, nu) by loik_tpu's Jacobian."""
+def certified(res, q, robot, jp):
+    """Max float64 task error |A v - b| over every constraint and box
+    violation over the problems flagged converged, the link velocities
+    recomputed from (q, nu) by loik_tpu's Jacobian."""
     conv = res.converged.numpy()
     assert conv.mean() > 0.5
     nu = res.nu.numpy().astype(np.float64)[conv]
-    tree64 = jrobots.panda_arm("float64")
-    v = np.asarray(jax.vmap(lambda q_, n: frame_velocity(tree64, q_, n, 6))(
-        jnp.asarray(q[conv], jnp.float64), jnp.asarray(nu)))
-    task = np.abs(v - np.array([0, 0, 0.2, 0, 0, 0])).max()
-    box = np.maximum(np.maximum(problem_lb - nu, nu - problem_ub), 0).max()
+    tree64 = jrobots.get(robot, "float64")
+    task = 0.0
+    for k, link in enumerate(jp.constraint_links):
+        v = np.asarray(jax.vmap(lambda q_, n: frame_velocity(tree64, q_, n, link))(
+            jnp.asarray(q[conv], jnp.float64), jnp.asarray(nu)))
+        A, b = np.asarray(jp.A[k], np.float64), np.asarray(jp.b[k], np.float64)
+        task = max(task, np.abs(v @ A.T - b).max())
+    lb, ub = np.asarray(jp.lb, np.float64), np.asarray(jp.ub, np.float64)
+    box = np.maximum(np.maximum(lb - nu, nu - ub), 0).max()
     return task, box
 
 
@@ -56,37 +61,61 @@ def _outcomes(res_t, res_j):
     return flag_diff, nu_err, d_it
 
 
-def test_delta_duals_same_arithmetic_as_reference(monkeypatch):
-    jt, tt, jp, tp = pair("panda_arm", "float32")
+def settings(robot):
+    """Solver settings of the robot's bench configuration."""
+    if robot == "panda_arm":
+        return FLAGSHIP
+    return dict(LEGGED, check_interval=LEGGED_K[robot])
+
+
+def same_arithmetic(robot, B, monkeypatch):
+    """loik_tpu op by op and the port fed loik_tpu's FK: the North-star
+    outcome budget, and the float64 certificate of what converged."""
+    jt, tt, jp, tp = pair(robot, "float32")
     q = q_batch(jt, B, seed=0, dtype="float32")
     liMi = shared_fk(jt, q)
     monkeypatch.setattr(tsm, "fwd_pass_init", lambda tree, q_: liMi)
     with jax.disable_jit():
-        res_j = jdelta(jt, JParams(**FLAGSHIP), jnp.asarray(q), jp, fused=False)
-    res_t = solve_delta_duals(tt, lt.SolverParams(**FLAGSHIP), torch.as_tensor(q), tp,
+        res_j = jdelta(jt, JParams(**settings(robot)), jnp.asarray(q), jp, fused=False)
+    res_t = solve_delta_duals(tt, lt.SolverParams(**settings(robot)), torch.as_tensor(q), tp,
                               fused=False)
     flag_diff, nu_err, d_it = _outcomes(res_t, res_j)
     assert flag_diff <= max(1, B // 100)
     assert nu_err <= 2e-5
     assert (d_it == 0).mean() >= 0.99
-    task, box = _certified(res_t, q, -4.0, 4.0)
+    assert not res_t.dual_infeasible.any()
+    task, box = certified(res_t, q, robot, jp)
     assert task <= 1e-5 and box <= 1e-5
 
 
-def test_delta_duals_matches_compiled_reference():
-    jt, tt, jp, tp = pair("panda_arm", "float32")
+def test_delta_duals_same_arithmetic_as_reference(monkeypatch):
+    same_arithmetic("panda_arm", 64, monkeypatch)
+
+
+def compiled_reference(robot, B, nu_atol=2e-5, it_slack=None):
+    """Against loik_tpu's compiled program: flags, nu where both converged
+    within nu_atol, iteration counts within it_slack (default: one check
+    interval), the float64 certificate.  Returns the share of problems whose
+    iteration counts differ."""
+    jt, tt, jp, tp = pair(robot, "float32")
     q = q_batch(jt, B, seed=1, dtype="float32")
-    res_j = jdelta(jt, JParams(**FLAGSHIP), jnp.asarray(q), jp, fused=False)
-    res_t = solve_delta_duals(tt, lt.SolverParams(**FLAGSHIP), torch.as_tensor(q), tp,
+    res_j = jdelta(jt, JParams(**settings(robot)), jnp.asarray(q), jp, fused=False)
+    res_t = solve_delta_duals(tt, lt.SolverParams(**settings(robot)), torch.as_tensor(q), tp,
                               fused=False)
     flag_diff, nu_err, d_it = _outcomes(res_t, res_j)
     assert flag_diff <= max(1, B // 100)
-    assert nu_err <= 2e-5
-    assert np.abs(d_it).max() <= FLAGSHIP["check_interval"]
-    task, box = _certified(res_t, q, -4.0, 4.0)
+    assert nu_err <= nu_atol, nu_err
+    assert np.abs(d_it).max() <= (it_slack or settings(robot)["check_interval"])
+    assert not res_t.dual_infeasible.any()
+    task, box = certified(res_t, q, robot, jp)
     assert task <= 1e-5 and box <= 1e-5
     np.testing.assert_array_equal(res_t.primal_infeasible.numpy(),
                                   np.asarray(res_j.primal_infeasible))
+    return float((d_it != 0).mean())
+
+
+def test_delta_duals_matches_compiled_reference():
+    compiled_reference("panda_arm", 64)
 
 
 def test_delta_state_is_full_space():

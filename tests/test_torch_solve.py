@@ -1,7 +1,8 @@
 """The port's eager solver end to end in float64: `solve` against
 loik_tpu's `solve` on the same trees, problems and q (nu at 1e-10,
 iterations and every flag equal), warm starts, and the panda entries of the
-frozen golden trajectories (tests/golden/traces.json).
+frozen golden trajectories (tests/golden/traces.json).  The legged robots
+are in tests/test_torch_legged.py.
 """
 
 import json
@@ -26,7 +27,7 @@ FLAGS = ("converged", "primal_infeasible", "dual_infeasible", "iterations",
          "tail_iterations")
 
 
-def _assert_same(res_t, res_j, atol=1e-10):
+def assert_same(res_t, res_j, atol=1e-10):
     for name in FLAGS:
         np.testing.assert_array_equal(getattr(res_t, name).numpy(),
                                       np.asarray(getattr(res_j, name)), err_msg=name)
@@ -51,7 +52,7 @@ def test_solve_f64_matches_reference(robot, check_interval):
     res_j = jsolve(jt, JParams(**params), jnp.asarray(q), jp)
     res_t = lt.solve(tt, lt.SolverParams(**params), torch.as_tensor(q), tp)
     assert res_t.converged.any()
-    _assert_same(res_t, res_j)
+    assert_same(res_t, res_j)
 
 
 @pytest.mark.parametrize("tail_solve", [True, False])
@@ -66,13 +67,13 @@ def test_solve_f64_infeasible_batch(tail_solve):
     from loik_tpu.problem import make_problem as jmake_problem
 
     jp = jmake_problem(jt, (6,), b=b, lb=-0.5 * np.ones(7), ub=0.5 * np.ones(7))
-    tp = lt.convert.problem_from_arrays(jp)
+    tp = lt.convert.problem_from_arrays(jp, device="cpu")
     q = q_batch(jt, B, seed=9)
     params = dict(max_iter=150, tol_abs=1e-6, tol_rel=1e-6, tail_solve=tail_solve)
     res_j = jsolve(jt, JParams(**params), jnp.asarray(q), jp)
     res_t = lt.solve(tt, lt.SolverParams(**params), torch.as_tensor(q), tp)
     assert res_t.primal_infeasible.any()
-    _assert_same(res_t, res_j)
+    assert_same(res_t, res_j)
 
 
 def test_solve_f64_warm_start():
@@ -88,7 +89,7 @@ def test_solve_f64_warm_start():
     warm_j = jsolve(jt, JParams(**params), jnp.asarray(q), jp2, warm_state=cold_j.state)
     warm_t = lt.solve(tt, lt.SolverParams(**params), torch.as_tensor(q), tp2,
                       warm_state=cold_t.state)
-    _assert_same(warm_t, warm_j)
+    assert_same(warm_t, warm_j)
     conv = cold_t.converged
     assert warm_t.iterations[conv].double().mean() < cold_t.iterations[conv].double().mean()
 
@@ -123,7 +124,7 @@ def _golden_problem(trace, tree):
 def test_golden_trace_panda(trace, params):
     """The frozen reference trajectory's endpoint and flags, at the bounds
     tests/test_golden_trace.py holds loik_tpu's fast solver to."""
-    tree = lt.robots.panda()
+    tree = lt.robots.panda(device="cpu")
     res = lt.solve(tree, lt.SolverParams(**params),
                    torch.as_tensor(np.asarray(trace["q"])), _golden_problem(trace, tree))
     assert int(res.iterations[0]) == trace["iterations"]

@@ -1,8 +1,10 @@
 """loik_tpu_torch spatial algebra against loik_tpu, on the same random
 inputs (numpy, seeded): every trailing-batch primitive of
 `solver/batched_spatial.py` at 1e-12 in float64 and 1e-5 in float32, both
-`act_sym6` forms, `spd_inv` for k = 1, 3, 6, and the leading-batch SE(3)
-pieces of `spatial.py` that FK and the URDF loader use.
+`act_sym6` forms, `spd_inv` for k = 1, 2, 3, 6 (also against
+`numpy.linalg.inv`, 1e-10 in float64), and the leading-batch SE(3) pieces of
+`spatial.py` that FK, manifold integration and the URDF loader use, the
+small-angle branches of the exponentials included.
 """
 
 import jax.numpy as jnp
@@ -110,7 +112,7 @@ def test_sum_lead_matches_jnp_sum(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("k", [1, 3, 6])
+@pytest.mark.parametrize("k", [1, 2, 3, 6])
 def test_spd_inv(k, dtype):
     D = _spd(np.random.default_rng(k), k).astype(dtype)
     want = np.asarray(jbsp.spd_inv(jnp.asarray(D)))
@@ -120,6 +122,84 @@ def test_spd_inv(k, dtype):
     eye = np.einsum("ijb,jkb->ikb", got.astype(np.float64), D.astype(np.float64))
     np.testing.assert_allclose(eye, np.broadcast_to(np.eye(k)[..., None], eye.shape),
                                atol=1e3 * TOL[dtype])
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+def test_spd_inv_against_numpy(k):
+    """The unrolled Cholesky inverse the solver and the CUDA kernel share,
+    against LAPACK's: 1e-10 in float64 on D = M M^T + k I."""
+    D = _spd(np.random.default_rng(10 + k), k)
+    want = np.moveaxis(np.linalg.inv(np.moveaxis(D, -1, 0)), 0, -1)
+    got = tbsp.spd_inv(torch.as_tensor(D)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got, np.swapaxes(got, 0, 1), rtol=0, atol=1e-14)
+
+
+def _tangents(rng, n, dtype):
+    """n tangent vectors (n, 6): generic, tiny (the Taylor branches), at the
+    branch cutoff's scale, and zero."""
+    v = rng.uniform(-2.0, 2.0, (n, 6))
+    v[0] *= 1e-9
+    v[1] *= 1e-5
+    v[2] *= float(np.sqrt(tsp._small_angle_cutoff(getattr(torch, dtype)))) / 2.0
+    v[3] = 0.0
+    return v.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["exp3_quat", "se3_exp_translation", "se2_exp", "quat_mul",
+                                  "quat_to_rotmat", "rotation_about_axis_cs"])
+def test_manifold_pieces_match_reference(name, dtype):
+    """The exponentials and quaternion pieces behind `integrate` and the
+    free-flyer / spherical / planar / continuous `joint_calc`."""
+    rng = np.random.default_rng(4)
+    v = _tangents(rng, B, dtype)
+    q1, q2 = rng.standard_normal((2, B, 4)).astype(dtype)
+    axis = rng.standard_normal((B, 3))
+    axis = (axis / np.linalg.norm(axis, axis=-1, keepdims=True)).astype(dtype)
+    ang = rng.uniform(-np.pi, np.pi, B)
+    args = {
+        "exp3_quat": (v[:, 3:],),
+        "se3_exp_translation": (v,),
+        "se2_exp": (v[:, 0], v[:, 1], v[:, 5]),
+        "quat_mul": (q1, q2),
+        "quat_to_rotmat": (q1,),
+        "rotation_about_axis_cs": (axis, np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)),
+    }[name]
+    want = getattr(jsp, name)(*[jnp.asarray(a) for a in args])
+    got = getattr(tsp, name)(*[torch.as_tensor(a) for a in args])
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_small_angle_cutoff_and_so3_coeffs(dtype):
+    td = getattr(torch, dtype)
+    assert tsp._small_angle_cutoff(td) == pytest.approx(jsp._small_angle_cutoff(jnp.dtype(dtype)))
+    w = _tangents(np.random.default_rng(6), B, dtype)[:, 3:]
+    for g, x in zip(tsp._so3_coeffs(torch.as_tensor(w)), jsp._so3_coeffs(jnp.asarray(w))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_exponentials_are_rotations_and_compose():
+    """exp3_quat gives unit quaternions whose matrix is Rodrigues' rotation,
+    and quat_mul composes like the matrices."""
+    rng = np.random.default_rng(8)
+    w = torch.as_tensor(_tangents(rng, B, "float64")[:, 3:])
+    q = tsp.exp3_quat(w)
+    np.testing.assert_allclose(q.norm(dim=-1).numpy(), 1.0, atol=1e-14)
+    theta = w.norm(dim=-1)
+    axis = w / theta.clamp_min(1e-300)[:, None]
+    np.testing.assert_allclose(tsp.quat_to_rotmat(q).numpy(),
+                               tsp.rotation_about_axis(axis, theta).numpy(), atol=1e-12)
+    q2 = tsp.exp3_quat(torch.as_tensor(rng.uniform(-1, 1, (B, 3))))
+    np.testing.assert_allclose(
+        tsp.quat_to_rotmat(tsp.quat_mul(q, q2)).numpy(),
+        (tsp.quat_to_rotmat(q) @ tsp.quat_to_rotmat(q2)).numpy(), atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
