@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-Three main paths, each the tight-tolerance solve
+Five main paths through the fused ADMM kernel
+(`loik_tpu_torch/kernels/csrc/fused_admm.cu`).  Three are the
+tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
-tol 1e-6 whose two float32 stages run the fused ADMM kernel
-(`loik_tpu_torch/kernels/csrc/fused_admm.cu`):
+tol 1e-6, whose two float32 stages each run the kernel:
   - flagship: `panda_arm` (7 revolute joints), one 6-D end-effector
     constraint, box +-4, B = 16384, check_interval 8;
   - solo12: free-flyer base + 4 x 3 revolute joints (13 joints, 18 dof),
@@ -14,6 +15,16 @@ tol 1e-6 whose two float32 stages run the fused ADMM kernel
     B = 10240, check_interval 4;
   - talos: the TALOS humanoid (33 joints, 38 dof, free-flyer base), a
     gripper heave with the base held, box +-4, B = 4096, check_interval 1.
+Two are the fleet paths:
+  - mixed: 512 UR5 + 512 panda_arm as ONE padded super-batch
+    (`parallel.prepare_mixed_padded`, `MixedPadded.solve_packed` with
+    `solve_delta_duals(fused="require")`), box = the velocity limits capped
+    at 4, v_z = 0.2, tol 1e-6, check_interval 4: the kernel reads every
+    problem's own motion subspaces (`S_all`);
+  - tracking: `DiffIkSolver(panda_arm, ..., fused="require")` with warm
+    starts at tol 1e-4, check_interval 1, fleets of B = 16384 and B = 256,
+    a target sweep of T = 100 ticks through `track_scan`: one launch per
+    tick, each tick's state the input of the next.
 
 Phases (any failure raises, so the script exits nonzero):
   1. a CUDA device, and the card's name and power limit from nvidia-smi;
@@ -43,7 +54,31 @@ Phases (any failure raises, so the script exits nonzero):
      (B=256, check_interval 1) within 1e-9, padded dof slots zero; the float
      instantiation on both at full B for max_iter 1, 2, 3 within 1e-4;
   7. the solo12 main path, checked and timed as phase 5;
-  8. the talos main path, likewise.
+  8. the talos main path, likewise;
+  9. per-problem subspaces against the eager loop: the double instantiation
+     on the mixed chain at B=1024, check_interval 1 and 4, within 1e-9, the
+     padded joint's dof slots exactly zero; the float instantiation at
+     B=1024 and B=16384 for max_iter 1, 2, 3 within 1e-4; and panda_arm with
+     its shared S broadcast to `S_all` against the shared-S launch on the
+     flagship's inputs, bit for bit, both timed;
+ 10. the mixed main path: the launch count rises by 2, the outcome budget
+     against the eager path, the float64 task residual and box violation of
+     every converged problem at most 1e-5 RECOMPUTED PER GROUP ON THE
+     GROUP'S OWN UNPADDED TREE from `unpack`'s result, and against
+     `solve_mixed` (one kernel solve per topology) converged flags differing
+     on at most max(1, B/100) problems and nu within 2e-5 where both
+     converged.  Timed as phase 5, once more at 8192 + 8192, and as
+     `solve_scan(q_packed=..., light=True)` over 20 staged super-batches;
+ 11. the tracking path: `track_scan` over T=10 at B=1024 equals T eager
+     ticks on every state field and 10 calls of `solve_tracking`; for each
+     fleet, after five settling ticks, the T=100 stream launches the kernel
+     exactly T times and enqueues WITHOUT A HOST SYNCHRONISATION (counted
+     with torch's sync debug mode); converged fraction, mean warm iterations
+     and the float64 task residual of the last tick's converged problems (at
+     most 1e-3); ms per tick by CUDA events around the whole stream, the
+     host's enqueue time, the synchronous p50 of `solve_tracking`, the
+     kernel alone per tick, the device's idle share over one stream
+     (torch.profiler), and the bound.
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -65,13 +100,15 @@ REPLACES = "loik_tpu/kernels/fused.py:62"
 PEAK_FP32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-# the three main paths: batch, check_interval, threads per block (None: the
-# package's default)
+# the delta-duals main paths: batch, check_interval
 PATHS = {
     "flagship": dict(B=16384, K=8),
     "solo12": dict(B=10240, K=4),
     "talos": dict(B=4096, K=1),
+    "mixed": dict(B=1024, K=4),
 }
+# the tracking path: fleets, ticks, tolerance
+TRACKING = dict(fleets=(16384, 256), T=100, tol=1e-4, settle=5)
 
 
 def log(msg: str) -> None:
@@ -242,8 +279,10 @@ def loop_bound(fused_mod, tree, params, prob, st_in, st_out):
     tensors += [getattr(prob, n) for n in fused_mod._PROB_FIELDS]
     tensors += [getattr(prob, n) for n in fused_mod._OPTIONAL_FIELDS
                 if getattr(prob, n) is not None]
+    # the motion subspaces: per problem (S_all) or one small tensor per tree
     tensors += [st_in.liMi_R, st_in.liMi_p,
-                fused_mod._subspace_operand(tree, st_in.vis.dtype)]
+                prob.S_all if prob.S_all is not None
+                else fused_mod._subspace_operand(tree, st_in.vis.dtype)]
     tensors += [getattr(st_out, n) for n in fused_mod._STATE_FIELDS]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
 
@@ -301,17 +340,12 @@ class HostSplit:
         return wrapper
 
 
-def main_path(mods, name, phase):
-    """Drive one main path through the kernel, check it against the eager
-    path and in float64, time it; returns the path's `kernels` entry."""
-    torch, lt, fused_mod, sm, rf, bsp = mods
-    B, K = PATHS[name]["B"], PATHS[name]["K"]
-    dev = torch.device("cuda")
-    tree, links, problem, params, q = config(lt, torch, name, torch.float32, dev, B, K)
-    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
-    eager = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False)
-
-    captured = []                      # the kernel's inputs, stage by stage
+def capture_launches(mods, fn):
+    """fn() with the launch count set to 0 just before and read just after,
+    and every `fused_solve_loop` call's inputs recorded.  Returns (fn's
+    result, launches counted by the wrapper, the recorded calls)."""
+    torch, fused_mod = mods[0], mods[2]
+    captured = []
     launch = fused_mod.fused_solve_loop
 
     def recording(tree_, params_, prob_, st_, batch_tile=None):
@@ -319,50 +353,57 @@ def main_path(mods, name, phase):
         return launch(tree_, params_, prob_, st_, batch_tile)
 
     fused_mod.fused_solve_loop = recording
-    fused_mod.LAUNCHES = 0
-    res = solver.solve_refined(q, method="delta")
-    torch.cuda.synchronize()
-    launches = fused_mod.LAUNCHES
-    fused_mod.fused_solve_loop = launch
-    log(f"[{phase}] {name} main path B={B} check_interval={K} ({tree.njoints} joints, "
-        f"{tree.nv} dof, {len(links)} constraints): kernel launches {launches}")
-    if launches != 2 or len(captured) != 2:
-        raise AssertionError(f"expected 2 kernel launches, got {launches}")
+    try:
+        fused_mod.LAUNCHES = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches = fused_mod.LAUNCHES
+    finally:
+        fused_mod.fused_solve_loop = launch
+    return res, launches, captured
 
-    res_e = eager.solve_refined(q, method="delta")
-    conv, conv_e = res.converged, res_e.converged
-    both = conv & conv_e
-    nu_err = float((res.nu - res_e.nu)[both].abs().max())
-    flag_diff = int((conv != conv_e).sum())
-    it_eq = float((res.iterations == res_e.iterations).double().mean())
-    log(f"    vs eager: nu max |diff| {nu_err:.3e} (converged in both), "
+
+def outcome_budget(res, ref, B, what, it_frac=0.99):
+    """nu within 2e-5 where both converged, converged flags differing on at
+    most max(1, B/100) problems, equal iteration counts on at least it_frac
+    (None: not held)."""
+    conv, conv_r = res.converged, ref.converged
+    both = conv & conv_r
+    nu_err = float((res.nu - ref.nu)[both].abs().max())
+    flag_diff = int((conv != conv_r).sum())
+    it_eq = float((res.iterations == ref.iterations).double().mean())
+    log(f"    vs {what}: nu max |diff| {nu_err:.3e} (converged in both), "
         f"flag diffs {flag_diff}, equal iteration counts {it_eq:.4f}, "
-        f"all-problem nu max |diff| {float((res.nu - res_e.nu).abs().max()):.3e}")
-    if not (nu_err <= 2e-5 and flag_diff <= max(1, B // 100) and it_eq >= 0.99):
-        raise AssertionError("outcome budget against the eager path not met")
+        f"all-problem nu max |diff| {float((res.nu - ref.nu).abs().max()):.3e}")
+    if not (nu_err <= 2e-5 and flag_diff <= max(1, B // 100)
+            and (it_frac is None or it_eq >= it_frac)):
+        raise AssertionError(f"outcome budget against {what} not met")
 
-    # certification honesty: recompute every task residual in float64 from (q, nu)
-    tree64 = tree.astype(torch.float64)
+
+def certify(mods, tree, problem, links, q, res, label=""):
+    """For every problem flagged converged: the task residual |A v - b|_inf
+    over every constraint and the box violation, recomputed in float64 from
+    (q, nu) on `tree`; at most 1e-5 each."""
+    torch, sm, bsp = mods[0], mods[3], mods[5]
+    conv = res.converged
     nu64 = res.nu.double()[conv]
-    v = link_velocities(sm, bsp, tree64, q.double()[conv], nu64)
+    v = link_velocities(sm, bsp, tree.astype(torch.float64), q.double()[conv], nu64)
     task = max(float((v[c] @ problem.A[k].double().T - problem.b[k].double()).abs().max())
                for k, c in enumerate(links))
     box = float(torch.clamp(torch.maximum(problem.lb.double() - nu64,
                                           nu64 - problem.ub.double()), min=0).max())
-    log(f"    converged {float(conv.double().mean()):.4f}, mean iterations "
+    log(f"    {label}converged {float(conv.double().mean()):.4f}, mean iterations "
         f"{float(res.iterations.double().mean()):.2f}, f64 task residual "
         f"{task:.3e} over {len(links)} constraints, box violation {box:.3e} "
         "(max over converged)")
     if not (task <= 1e-5 and box <= 1e-5):
         raise AssertionError("a converged problem misses the task or the box")
 
-    ms_path = cuda_median_ms(torch, lambda: solver.solve_refined(q, method="delta"))
-    ms_eager_path = cuda_median_ms(torch, lambda: eager.solve_refined(q, method="delta"),
-                                   reps=3)
-    log(f"    solve_refined: kernel path {ms_path:.3f} ms (median of 5), eager path "
-        f"{ms_eager_path:.3f} ms (median of 3), CUDA events")
 
-    # where the host's time goes: one solve with a synchronize around each layer
+def host_split(mods, fn):
+    """Where the host's time goes: one call of fn with a synchronize around
+    each layer."""
+    torch, _, fused_mod, sm, rf, _ = mods
     split = HostSplit(torch, [
         ("FK", sm, "fwd_pass_init"), ("prepare", sm, "prepare_problem"),
         ("prepare", rf, "prepare_problem"), ("reset", sm, "_reset_state"),
@@ -371,17 +412,23 @@ def main_path(mods, name, phase):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with split:
-        solver.solve_refined(q, method="delta")
+        fn()
         torch.cuda.synchronize()
     total = (time.perf_counter() - t0) * 1e3
     rest = total - sum(split.ms.values())
     log(f"    host split of one synced solve ({total:.3f} ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.ms.items())
-        + f", rest (delta problem, casts, validation, recombination) {rest:.3f} ms")
+        + f", rest (delta problem, casts, validation, recombination, packing) {rest:.3f} ms")
 
-    # each stage's kernel against its plain version on the same inputs
-    kernel_ms = plain_ms = alone_ms = 0.0
-    worst_err, nbytes_all, ops_all = 0.0, 0, 0
+
+def stage_report(mods, captured, eager_reps=3, what="stage"):
+    """Each recorded launch again, kernel against its plain version on the
+    same inputs: compared (at most 2e-5, expected 0), timed with CUDA events
+    and on the profiler, with the bound from these inputs.  Returns the sums
+    over the launches."""
+    torch, _, fused_mod, sm, _, _ = mods
+    launch = fused_mod.fused_solve_loop
+    out = dict(ms=0.0, plain_ms=0.0, alone_ms=0.0, err=0.0, nbytes=0, ops=0)
     for stage, (tree_, params_, prob_, st_, bt) in enumerate(captured, 1):
         ker = launch(tree_, params_, prob_, st_, bt)
         ref = sm._solve_loop(tree_, prob_, params_, st_)
@@ -389,20 +436,69 @@ def main_path(mods, name, phase):
                                              ker, ref).values())
         k_ms = cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
         p_ms = cuda_median_ms(torch, lambda: sm._solve_loop(tree_, prob_, params_, st_),
-                              reps=3)
+                              reps=eager_reps)
         dev_ms = kernel_device_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
         nbytes, ops = loop_bound(fused_mod, tree_, params_, prob_, st_, ker)
         b_ms, b_by = bound_ms(nbytes, ops)
-        log(f"    stage {stage}: fused_solve_loop {k_ms:.3f} ms (kernel alone "
+        log(f"    {what} {stage}: fused_solve_loop {k_ms:.3f} ms (kernel alone "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} on the "
             f"profiler), eager loop {p_ms:.3f} ms, max abs err {err:.3e}; "
             f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations, bound {b_ms:.4f} ms "
             f"by {b_by}")
-        kernel_ms, plain_ms, worst_err = kernel_ms + k_ms, plain_ms + p_ms, max(worst_err, err)
-        alone_ms = None if dev_ms is None or alone_ms is None else alone_ms + dev_ms
-        nbytes_all, ops_all = nbytes_all + nbytes, ops_all + ops
-    if worst_err > 2e-5:
-        raise AssertionError(f"kernel vs eager loop at the main path's inputs: {worst_err}")
+        out["ms"] += k_ms
+        out["plain_ms"] += p_ms
+        out["err"] = max(out["err"], err)
+        out["alone_ms"] = (None if dev_ms is None or out["alone_ms"] is None
+                           else out["alone_ms"] + dev_ms)
+        out["nbytes"] += nbytes
+        out["ops"] += ops
+    if out["err"] > 2e-5:
+        raise AssertionError(f"kernel vs eager loop at the main path's inputs: {out['err']}")
+    return out
+
+
+def kernels_entry(name, launches, rep):
+    least_ms, least_by = bound_ms(rep["nbytes"], rep["ops"])
+    return {
+        "name": f"fused_admm/{name}", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES, "launches": launches, "max_abs_err": rep["err"],
+        "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": least_ms,
+        "bound_by": least_by, "library_ms": None, "kernel_alone_ms": rep["alone_ms"],
+    }
+
+
+def main_path(mods, name, phase):
+    """Drive one delta-duals main path through the kernel, check it against
+    the eager path and in float64, time it; returns the path's `kernels`
+    entry."""
+    torch, lt, fused_mod = mods[:3]
+    B, K = PATHS[name]["B"], PATHS[name]["K"]
+    dev = torch.device("cuda")
+    tree, links, problem, params, q = config(lt, torch, name, torch.float32, dev, B, K)
+    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    eager = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False)
+
+    res, launches, captured = capture_launches(
+        mods, lambda: solver.solve_refined(q, method="delta"))
+    log(f"[{phase}] {name} main path B={B} check_interval={K} ({tree.njoints} joints, "
+        f"{tree.nv} dof, {len(links)} constraints): kernel launches {launches}")
+    if launches != 2 or len(captured) != 2:
+        raise AssertionError(f"expected 2 kernel launches, got {launches}")
+
+    outcome_budget(res, eager.solve_refined(q, method="delta"), B, "eager")
+    # certification honesty: recompute every task residual in float64 from (q, nu)
+    certify(mods, tree, problem, links, q, res)
+
+    ms_path = cuda_median_ms(torch, lambda: solver.solve_refined(q, method="delta"))
+    ms_eager_path = cuda_median_ms(torch, lambda: eager.solve_refined(q, method="delta"),
+                                   reps=3)
+    log(f"    solve_refined: kernel path {ms_path:.3f} ms (median of 5), eager path "
+        f"{ms_eager_path:.3f} ms (median of 3), CUDA events")
+    host_split(mods, lambda: solver.solve_refined(q, method="delta"))
+
+    # each stage's kernel against its plain version on the same inputs
+    rep = stage_report(mods, captured)
+    launch = fused_mod.fused_solve_loop
 
     # threads per block: stage 1 again at other block sizes
     tree_, params_, prob_, st_, bt = captured[0]
@@ -422,14 +518,7 @@ def main_path(mods, name, phase):
         sizes.append(f"{n}: {ms:.3f} ms (iterations max {int(its.max())}, "
                      f"mean {float(its.double().mean()):.2f})")
     log("    stage 1 by batch size: " + ", ".join(sizes))
-
-    least_ms, least_by = bound_ms(nbytes_all, ops_all)
-    return {
-        "name": f"fused_admm/{name}", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": worst_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": least_ms,
-        "bound_by": least_by, "library_ms": None, "kernel_alone_ms": alone_ms,
-    }
+    return kernels_entry(name, launches, rep)
 
 
 def against_eager(mods, name, dtype, B, K, max_iter=200):
@@ -466,6 +555,351 @@ def float_lockstep(mods, phase, name, B):
             + ", ".join(f"{k} {rel:.1e}" for k, (_, rel) in errs.items()))
         if max(rel for _, rel in errs.values()) > 1e-4:
             raise AssertionError(f"f32 lockstep {name} max_iter={mi}: {errs}")
+
+
+def mixed_setup(lt, torch, dtype, Bg, check_interval, max_iter=200):
+    """Bg UR5 + Bg panda_arm as one padded super-batch: the prepared
+    `MixedPadded`, the groups [(tree, seeded q, problem)] and the params.
+    Each problem: one 6-D end-effector constraint, v_z = 0.2, box = the
+    model's velocity limits capped at 4."""
+    dev = torch.device("cuda")
+    ds = str(dtype).removeprefix("torch.")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    groups = []
+    for robot in ("ur5", "panda_arm"):
+        tree = lt.robots.get(robot, ds, device=dev)
+        vl = torch.clamp(tree.velocity_limit, max=4.0)
+        problem = lt.make_problem(
+            tree, (tree.njoints - 1,), lb=-vl, ub=vl,
+            b=torch.tensor([[0.0, 0.0, 0.2, 0.0, 0.0, 0.0]], dtype=dtype))
+        groups.append((tree, tree.random_configuration((Bg,), generator=gen), problem))
+    params = lt.SolverParams(
+        max_iter=max_iter, tol_abs=1e-6, tol_rel=1e-6, mu=0.1,
+        mu_equality_scale_factor=1e5, tail_solve=False,
+        check_interval=check_interval,
+    )
+    mp = lt.parallel.prepare_mixed_padded([(t, Bg, p) for t, _, p in groups])
+    return mp, groups, params
+
+
+def mixed_against_eager(mods, dtype, Bg, K, max_iter=200):
+    """The kernel on per-problem subspaces against the eager loop on the
+    same `S_all`, and against the eager loop that derives S from the batched
+    axis leaf, from the same initial state on the mixed chain."""
+    torch, lt, fused_mod, sm, _, _ = mods
+    mp, groups, params = mixed_setup(lt, torch, dtype, Bg, K, max_iter)
+    q = mp.pack_q([q for _, q, _ in groups])
+    prob, st = initial_state(sm, mp.chain, mp.problem, params, q)
+    prob_S = fused_mod.with_S_all(mp.chain, prob, dtype)
+    ker = fused_mod.fused_solve_loop(mp.chain, params, prob_S, st)
+    ref = sm._solve_loop(mp.chain, prob_S, params, st)
+    for field in ("nu", "z", "w", "stfw"):     # the padded joint of the UR5 rows
+        for i, n in enumerate(mp.group_njoints):
+            rows = slice(sum(mp.group_sizes[:i]), sum(mp.group_sizes[:i + 1]))
+            if float(getattr(ker, field)[n:, :, rows].abs().sum()) != 0.0:
+                raise AssertionError(f"mixed: {field} of a padded joint is not zero")
+    in_loop = sm._solve_loop(mp.chain, prob, params, st)
+    for name in fused_mod._STATE_FIELDS:
+        if not torch.equal(getattr(ref, name), getattr(in_loop, name)):
+            raise AssertionError(f"eager loop: S_all and in-loop S differ in {name}")
+    return state_errors(torch, fused_mod._STATE_FIELDS, ker, ref), ref
+
+
+def subspaces_check(mods, phase):
+    """Phase 9: the per-problem-subspace instantiation against the eager
+    loop, and against the shared-S instantiation on the flagship's inputs."""
+    torch, lt, fused_mod, sm, _, _ = mods
+    for K in (1, 4):
+        errs, ref = mixed_against_eager(mods, torch.float64, 512, K)
+        worst = max(rel for _, rel in errs.values())
+        log(f"[{phase}] mixed f64 B={ref.iterations.shape[0]} K={K}: worst abs-or-rel {worst:.3e}, "
+            f"mean iterations {ref.iterations.double().mean():.2f}, padded dofs zero")
+        if worst > 1e-9:
+            raise AssertionError(f"f64 kernel vs eager mixed K={K}: {errs}")
+    for Bg in (512, 8192):
+        for mi in (1, 2, 3):
+            errs, _ = mixed_against_eager(mods, torch.float32, Bg, 1, max_iter=mi)
+            log(f"[{phase}] mixed f32 B={2 * Bg} max_iter={mi}: "
+                + ", ".join(f"{k} {rel:.1e}" for k, (_, rel) in errs.items()))
+            if max(rel for _, rel in errs.values()) > 1e-4:
+                raise AssertionError(f"f32 lockstep mixed max_iter={mi}: {errs}")
+
+    # panda_arm: its shared S broadcast to S_all must give the shared-S bits
+    B, K = PATHS["flagship"]["B"], PATHS["flagship"]["K"]
+    tree, _, problem, params, q = config(lt, torch, "flagship", torch.float32,
+                                         torch.device("cuda"), B, K)
+    prob, st = initial_state(sm, tree, problem, params, q)
+    S = fused_mod._subspace_operand(tree, torch.float32)           # (N, 6, 1)
+    prob_S = dataclasses.replace(
+        prob, S_all=S[..., None].expand(S.shape + (B,)).contiguous())
+    shared = fused_mod.fused_solve_loop(tree, params, prob, st)
+    per_problem = fused_mod.fused_solve_loop(tree, params, prob_S, st)
+    for name in fused_mod._STATE_FIELDS:
+        if not torch.equal(getattr(shared, name), getattr(per_problem, name)):
+            raise AssertionError(f"panda_arm: S_all and shared S differ in {name}")
+    ms = [kernel_device_ms(torch, lambda p=p: fused_mod.fused_solve_loop(tree, params, p, st))
+          for p in (prob, prob_S, prob_S, prob)]
+    log(f"[{phase}] panda_arm B={B} K={K} through S_all equals shared S on every field; "
+        "kernel alone for one cold solve to tol 1e-6 (max_iter 200), shared / S_all / "
+        "S_all / shared: "
+        + " / ".join("not measured" if m is None else f"{m:.3f}" for m in ms) + " ms")
+
+
+def mixed_path(mods, phase):
+    """Phase 10: the mixed super-batch main path."""
+    torch, lt, fused_mod, sm, rf, _ = mods
+    B, K = PATHS["mixed"]["B"], PATHS["mixed"]["K"]
+    mp, groups, params = mixed_setup(lt, torch, torch.float32, B // 2, K)
+    qs = [q for _, q, _ in groups]
+
+    def delta(fused):
+        return lambda t, p, q, pr: rf.solve_delta_duals(t, p, q, pr, fused=fused)
+
+    res, launches, captured = capture_launches(
+        mods, lambda: mp.solve_packed(params, qs, solve_fn=delta("require")))
+    fleet = " + ".join(f"{b} {t.name}" for (t, _, _), b in zip(groups, mp.group_sizes))
+    log(f"[{phase}] mixed main path B={B} ({fleet}) check_interval={K} (padded chain "
+        f"of {mp.chain.njoints} joints): kernel launches {launches}")
+    if launches != 2 or len(captured) != 2:
+        raise AssertionError(f"expected 2 kernel launches, got {launches}")
+    if any(c[2].S_all is None for c in captured):
+        raise AssertionError("a stage ran without per-problem subspaces")
+    if float(res.nu[:B // 2, 6:].abs().sum()) != 0.0:
+        raise AssertionError("a padded dof of the super-batch is not zero")
+
+    outcome_budget(res, mp.solve_packed(params, qs, solve_fn=delta(False)), B, "eager")
+    # the embedding is right if each group's result solves the group's own
+    # problem on its own unpadded tree
+    per_group = mp.unpack(res)
+    for (tree, q, problem), rg in zip(groups, per_group):
+        certify(mods, tree, problem, problem.constraint_links, q, rg,
+                label=f"{tree.name} on its own tree: ")
+    # one kernel solve per topology: the same optimum by another iterate path
+    # (the padded link adds its own proximal term), so no equal counts
+    alone = lt.parallel.solve_mixed(groups, params, solve_fn=delta("require"))
+    for (tree, _, _), rg, ra in zip(groups, per_group, alone):
+        outcome_budget(rg, ra, B // 2, f"solve_mixed ({tree.name} alone)", it_frac=None)
+
+    ms_path = cuda_median_ms(torch, lambda: mp.solve_packed(params, qs, solve_fn=delta("require")))
+    ms_eager = cuda_median_ms(torch, lambda: mp.solve_packed(params, qs, solve_fn=delta(False)),
+                              reps=3)
+    ms_groups = cuda_median_ms(
+        torch, lambda: lt.parallel.solve_mixed(groups, params, solve_fn=delta("require")))
+    log(f"    solve_packed: kernel path {ms_path:.3f} ms (median of 5), eager path "
+        f"{ms_eager:.3f} ms (median of 3), solve_mixed (two kernel solves) "
+        f"{ms_groups:.3f} ms, CUDA events")
+    host_split(mods, lambda: mp.solve_packed(params, qs, solve_fn=delta("require")))
+    rep = stage_report(mods, captured)
+
+    # R staged super-batches back to back, nothing read between them
+    R = 20
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q_packed = mp.pack_q_stacked(
+        [t.random_configuration((R, B // 2), generator=gen) for t, _, _ in groups])
+    scan = lambda: mp.solve_scan(params, q_packed=q_packed, solve_fn=delta("require"),
+                                 light=True)
+    fused_mod.LAUNCHES = 0
+    (conv, _), syncs = count_syncs(torch, scan)
+    torch.cuda.synchronize()
+    if fused_mod.LAUNCHES != 2 * R:
+        raise AssertionError(f"solve_scan: {fused_mod.LAUNCHES} launches for {R} reps")
+    ms_scan = cuda_median_ms(torch, scan, reps=3) / R
+    log(f"    solve_scan(q_packed, light) over {R} reps: {ms_scan:.3f} ms per rep, "
+        f"{2 * R} launches, host synchronisations {len(syncs)}, converged "
+        f"{float(conv.double().mean()):.4f}")
+    if syncs:
+        raise AssertionError("solve_scan synchronises the host: " + "; ".join(syncs[:5]))
+
+    # once more at 8192 + 8192, so that there is kernel time to read
+    big_B = 16384
+    mp2, groups2, _ = mixed_setup(lt, torch, torch.float32, big_B // 2, K)
+    qs2 = [q for _, q, _ in groups2]
+    res2, launches2, captured2 = capture_launches(
+        mods, lambda: mp2.solve_packed(params, qs2, solve_fn=delta("require")))
+    ms2 = cuda_median_ms(torch, lambda: mp2.solve_packed(params, qs2, solve_fn=delta("require")))
+    log(f"    B={big_B}: solve_packed {ms2:.3f} ms, launches {launches2}, converged "
+        f"{float(res2.converged.double().mean()):.4f}, mean iterations "
+        f"{float(res2.iterations.double().mean()):.2f}")
+    stage_report(mods, captured2, eager_reps=1)
+    return kernels_entry("mixed", launches, rep)
+
+
+def count_syncs(torch, fn):
+    """fn() under torch's sync debug mode: (fn's result, one line per
+    operation that made the host wait for the device)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+
+
+def tracking_path(mods, phase):
+    """Phase 11: warm-started tracking through `DiffIkSolver`."""
+    torch, lt, fused_mod, sm, _, _ = mods
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    T, tol = TRACKING["T"], TRACKING["tol"]
+    launch = fused_mod.fused_solve_loop
+
+    def make(B, fused):
+        tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32,
+                                                 dev, B, 1)
+        params = params.replace(tol_abs=tol, tol_rel=tol, warm_start=True)
+        return (lt.DiffIkSolver(tree, params, links, problem=problem, fused=fused),
+                tree, links, problem, q)
+
+    def sweep(n):
+        b_seq = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+        b_seq[:, 2] = 0.2 * torch.cos(2 * torch.pi * torch.arange(n, device=dev) / n)
+        return b_seq
+
+    # the instrument first: a read of a device value must be counted
+    if not count_syncs(torch, lambda: torch.ones(1, device=dev).item())[1]:
+        raise AssertionError("torch's sync debug mode does not report a .item()")
+
+    # ---- track_scan = eager ticks = calls of solve_tracking, T=10, B=1024
+    n, B = 10, 1024
+    kern, _, links, _, q = make(B, "require")
+    ee = links[0]
+    fused_mod.LAUNCHES = 0
+    got = kern.track_scan(q, sweep(n))
+    torch.cuda.synchronize()
+    if fused_mod.LAUNCHES != n:
+        raise AssertionError(f"track_scan: {fused_mod.LAUNCHES} launches for {n} ticks")
+    want = make(B, False)[0].track_scan(q, sweep(n))
+    errs = state_errors(torch, fused_mod._STATE_FIELDS, got.state, want.state)
+    ticker = make(B, "require")[0]
+    ticks = [ticker.solve_tracking(q, ee, b=b) for b in sweep(n)]
+    for name in ("nu", "converged", "iterations", "primal_residual", "dual_residual"):
+        a = getattr(got, name)
+        if not torch.equal(a, getattr(want, name)):
+            raise AssertionError(f"track_scan: kernel and eager ticks differ in {name}")
+        if not torch.equal(a, torch.stack([getattr(r, name) for r in ticks])):
+            raise AssertionError(f"track_scan and solve_tracking differ in {name}")
+    worst = max(a for a, _ in errs.values())
+    log(f"[{phase}] track_scan T={n} B={B}: equals {n} eager ticks (final state max abs "
+        f"err {worst:.1e}) and {n} calls of solve_tracking; mean iterations per tick "
+        + " ".join(f"{x:.1f}" for x in got.iterations.double().mean(1).tolist()))
+    if worst != 0.0:
+        raise AssertionError(f"tracking: kernel ticks against eager ticks: {errs}")
+
+    entries = []
+    for B in TRACKING["fleets"]:
+        solver, tree, links, problem, q = make(B, "require")
+        ee = links[0]
+        for _ in range(TRACKING["settle"]):             # settle the duals
+            solver.solve_tracking(q, ee, b=problem.b[0])
+        b_seq = sweep(T)
+        solver.track_scan(q, b_seq)                      # warm-up stream
+        torch.cuda.synchronize()
+
+        # the timed stream: launches, host synchronisations, CUDA events
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def timed():
+            start.record()
+            t0 = time.perf_counter()
+            out = solver.track_scan(q, b_seq)
+            host = (time.perf_counter() - t0) * 1e3
+            end.record()
+            return out, host
+
+        fused_mod.LAUNCHES = 0
+        (stream, host_ms), syncs = count_syncs(torch, timed)
+        end.synchronize()
+        launches = fused_mod.LAUNCHES
+        tick_ms = start.elapsed_time(end) / T
+        log(f"[{phase}] tracking B={B} T={T} tol {tol:g}: {launches} launches, host "
+            f"synchronisations {len(syncs)}, {tick_ms:.4f} ms per tick (CUDA events "
+            f"around the stream), host enqueue {host_ms / T:.4f} ms per tick")
+        if launches != T:
+            raise AssertionError(f"expected {T} launches, got {launches}")
+        if syncs:
+            raise AssertionError("the stream synchronises the host: " + "; ".join(syncs[:5]))
+
+        # what came out: the last tick in float64, on the tree
+        conv = stream.converged[-1]
+        nu64 = stream.nu[-1].double()[conv]
+        v = link_velocities(sm, mods[5], tree.astype(torch.float64), q.double()[conv], nu64)
+        task = float((v[ee] - b_seq[-1].double()).abs().max())
+        at_cap = float((stream.iterations >= solver.params.max_iter - 1).double().mean())
+        log(f"    converged fraction {float(stream.converged.double().mean()):.4f} "
+            f"(last tick {float(conv.double().mean()):.4f}), mean warm iterations "
+            f"{float(stream.iterations.double().mean()):.2f} (max "
+            f"{int(stream.iterations.max())}; share of (tick, problem) pairs that run "
+            f"to the iteration cap {at_cap:.5f}), f64 task residual of the last "
+            f"tick's converged problems {task:.3e}")
+        if not (task <= 1e-3 and bool(torch.isfinite(stream.nu).all())):
+            raise AssertionError("tracking: a converged problem misses its target")
+
+        # synchronous per-tick latency through solve_tracking
+        lat = []
+        for b in b_seq:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve_tracking(q, ee, b=b)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        log(f"    solve_tracking, synchronous: p50 {statistics.median(lat):.4f} ms, "
+            f"p90 {statistics.quantiles(lat, n=10)[-1]:.4f} ms per tick (host clock)")
+
+        # one stream on the profiler: the kernel alone, device busy, idle share
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solver.track_scan(q, b_seq)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+        ker_us = sum(getattr(e, "self_device_time_total", 0) for e in events
+                     if "fused_admm_kernel" in e.key)
+        alone = ker_us / 1e3 / T if ker_us else None
+        if dev_us:
+            log(f"    profiler over one stream: wall {wall:.3f} ms, device busy "
+                f"{dev_us / 1e3:.3f} ms, idle share {1 - dev_us / 1e3 / wall:.4f}, kernel "
+                f"alone {alone:.4f} ms per tick")
+        else:
+            log("    profiler saw no device time: kernel alone and idle share not measured")
+
+        # the ticks of one more stream recorded: every launch again, timed,
+        # with its bound (the ticks differ: one lasts as long as its slowest
+        # problem); then kernel against plain version on three of them
+        _, _, captured = capture_launches(mods, lambda: solver.track_scan(q, b_seq))
+        nbytes = ops = 0
+        call_ms = []
+        for tree_, params_, prob_, st_, bt in captured:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = launch(tree_, params_, prob_, st_, bt)
+            end.record()
+            end.synchronize()
+            call_ms.append(start.elapsed_time(end))
+            nb, op = loop_bound(fused_mod, tree_, params_, prob_, st_, out)
+            nbytes, ops = nbytes + nb, ops + op
+        rep = stage_report(mods, [captured[0], captured[T // 2], captured[-1]], what="tick")
+        b_ms, b_by = bound_ms(nbytes / T, ops / T)
+        log(f"    per tick: fused_solve_loop mean {statistics.mean(call_ms):.4f} ms over the "
+            f"{T} ticks (min {min(call_ms):.4f}, max {max(call_ms):.4f}), eager loop "
+            f"{rep['plain_ms'] / 3:.3f} ms (mean of the three ticks above); bound "
+            f"{b_ms:.5f} ms per tick by {b_by}")
+        entries.append({
+            "name": f"fused_admm/tracking_B{B}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches, "max_abs_err": rep["err"],
+            "ms": statistics.mean(call_ms), "plain_ms": rep["plain_ms"] / 3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "kernel_alone_ms": alone, "stream_ms_per_tick": tick_ms,
+        })
+    return entries
 
 
 def main() -> None:
@@ -522,6 +956,13 @@ def main() -> None:
     # ---- 7, 8. the legged robots' main paths -----------------------------
     kernels.append(main_path(mods, "solo12", 7))
     kernels.append(main_path(mods, "talos", 8))
+
+    # ---- 9, 10. per-problem subspaces and the mixed super-batch ----------
+    subspaces_check(mods, 9)
+    kernels.append(mixed_path(mods, 10))
+
+    # ---- 11. warm-started tracking ---------------------------------------
+    kernels += tracking_path(mods, 11)
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,7 @@ device; on a CUDA device the whole ADMM loop runs as one hand-written kernel
 package never imports it or jax.
 """
 
-from . import spatial
+from . import parallel, spatial
 from .api import DiffIkSolver
 from .model import KinematicTree, builders, load_urdf, make_tree, robots
 from .params import MuUpdateStrat, SolverParams
@@ -18,5 +18,6 @@ from .problem import IkProblem, make_problem
 from .solver import solve
 from .solver.refine import solve_delta_duals
 from .solver.state import SolveResult, SolverState
+from .solver.stream import StreamResult, solve_stream
 
 __version__ = "0.1.0"

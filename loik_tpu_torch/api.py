@@ -1,9 +1,14 @@
 """Object-style solver API mirroring the reference's surface.
 
-Port of `loik_tpu.api.DiffIkSolver`: construct once per (model, params,
-constraint topology), then call `solve` or the tight-tolerance
-`solve_refined`.  The split `solve_init`/`resolve` pair, `solve_tracking`,
-`track_scan` and `reach` are not ported yet (ROADMAP queue 1 item 8).
+Port of `loik_tpu.api.DiffIkSolver`, the role of
+`FirstOrderLoikOptimizedTpl` (loik-loid-optimized.hpp:22): construct once
+per (model, params, constraint topology), then call `solve`, the
+tight-tolerance `solve_refined`, the split `solve_init` / `resolve` pair, or
+the tailored per-tick `solve_tracking` that updates a single constraint —
+the 1 kHz control-loop path (`Solve(q, c_id, Ai, bi)`,
+loik-loid-optimized.hpp:596-695) — and its staged form `track_scan`.  All
+methods are batched.  `reach` (closed-loop position IK) waits for
+`solve_clik` (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -15,8 +20,10 @@ import torch
 from .params import SolverParams
 from .problem import IkProblem, make_problem
 from .solver import solve
-from .solver.refine import solve_delta_duals
+from .solver.refine import default_batch_tile, solve_delta_duals
+from .solver.solve import _as_batch, _solve_impl, fwd_pass_init, solve_from_fk
 from .solver.state import SolveResult, SolverState
+from .solver.stream import StreamResult, solve_stream
 
 
 class DiffIkSolver:
@@ -24,10 +31,10 @@ class DiffIkSolver:
                  constraint_links: Sequence[int],
                  problem: Optional[IkProblem] = None,
                  fused=None):
-        """fused: kernel policy for `solve_refined` — None (auto: fuse when
-        eligible, warn once naming the blocker otherwise), True/False to
-        force, or "require" to raise when the fused kernel cannot run
-        (`kernels.fused.resolve_fused`)."""
+        """fused: kernel policy for `solve_refined`, `solve_tracking` and
+        `track_scan` — None (auto: fuse when eligible, warn once naming the
+        blocker otherwise), True/False to force, or "require" to raise when
+        the fused kernel cannot run (`kernels.fused.resolve_fused`)."""
         if fused not in (None, True, False, "require"):
             raise ValueError(
                 f"fused must be None, True, False, or 'require'; got {fused!r}"
@@ -40,6 +47,7 @@ class DiffIkSolver:
             tree, self.constraint_links
         )
         self._state: Optional[SolverState] = None
+        self._liMi = None
         self.last_result: Optional[SolveResult] = None
 
     def _tensor(self, x, like: torch.Tensor) -> torch.Tensor:
@@ -114,6 +122,99 @@ class DiffIkSolver:
         self._state = res.state
         self.last_result = res
         return res
+
+    def solve_init(self, q, problem: Optional[IkProblem] = None):
+        """SolveInit/Solve split: freeze FK at q, then `resolve()` re-runs
+        only the main loop (timing harness pattern, loik-loid-optimized.hpp:
+        335-361).  FK runs ONCE here; `resolve()` reuses the cached liMi —
+        like the reference, whose split exists precisely to avoid re-running
+        FK."""
+        if problem is not None:
+            self.problem = problem
+        self._liMi = fwd_pass_init(self.tree, _as_batch(self.tree, q))
+
+    def resolve(self) -> SolveResult:
+        """Re-run only the main loop on the FK frozen by `solve_init`.
+
+        Honors `params.warm_start` exactly like the reference's `Solve()`
+        after `SolveInit()`, which runs `ik_id_data_.Reset(warm_start_)` —
+        duals/primal persist across re-solves when the flag is set
+        (loik-loid-optimized.hpp:368-455, loik-loid-data-optimized.hxx:
+        114-127) — and threads the result state so later warm calls
+        (`solve_tracking`, another `resolve`) start from it."""
+        if self._liMi is None:
+            raise RuntimeError("call solve_init first")
+        res = solve_from_fk(self.tree, self.params, self._liMi[0],
+                            self._liMi[1], self.problem,
+                            self._state if self.params.warm_start else None)
+        self._state = res.state
+        self.last_result = res
+        return res
+
+    def _slot(self, link: Optional[int]) -> int:
+        if link is None:
+            if len(self.constraint_links) != 1:
+                raise ValueError(
+                    "multiple constraints; pass link= explicitly")
+            link = self.constraint_links[0]
+        if link not in self.constraint_links:
+            raise ValueError(f"no constraint at link {link}")
+        return self.constraint_links.index(link)
+
+    def solve_tracking(self, q, link: int, A=None, b=None) -> SolveResult:
+        """Per-tick tracking solve: update ONE constraint target and re-solve,
+        warm-starting duals from the previous tick when params.warm_start
+        (the 1 kHz path, loik-loid-optimized.hpp:596-695).  On CUDA tensors
+        the tick is one launch of the fused kernel when it is eligible, and
+        the call returns without waiting for the device."""
+        from .kernels.fused import _fused_body, resolve_fused
+
+        slot = self._slot(link)
+        q = _as_batch(self.tree, q)
+        batch_tile = default_batch_tile(self.tree.njoints)
+        fused = resolve_fused(
+            self.fused, self.tree, self.params, q.shape[0], batch_tile,
+            dtype=q.dtype, where="solve_tracking",
+            num_constraints=len(self.constraint_links),
+        )
+        self.problem = self.problem.update_constraint(slot, A=A, b=b)
+        warm = self._state if self.params.warm_start else None
+        if fused:
+            res = _fused_body(self.params, batch_tile, self.tree, q,
+                              self.problem, warm)
+        else:
+            res = _solve_impl(self.tree, self.params, q, self.problem, warm)
+        self._state = res.state
+        self.last_result = res
+        return res
+
+    def track_scan(self, q, b_seq, link: Optional[int] = None, A_seq=None,
+                   refine: Optional[str] = None) -> StreamResult:
+        """Run a horizon of tracking ticks as one call (`solve_stream`).
+
+        The staged form of `solve_tracking`: `b_seq[t]` (and optionally
+        `A_seq[t]`) retargets the constraint at `link` each tick and the
+        re-solve warm-starts from the previous tick's duals; on the kernel
+        path the ticks are enqueued without a host synchronisation between
+        them.  `q` is (B, nq) held fixed or (T, B, nq) per tick.  Returns a
+        `StreamResult` with per-tick (T, B, ...) outputs; the final tick's
+        state/targets become the solver's warm state and constraint values,
+        so per-tick `solve_tracking` calls and further streams continue
+        seamlessly."""
+        slot = self._slot(link)
+        q = torch.as_tensor(q, device=self.tree.device)
+        if q.ndim == 1:
+            q = q[None]
+        stream = solve_stream(
+            self.tree, self.params, q, self.problem, slot,
+            b_seq, A_seq=A_seq,
+            warm_state=self._state if self.params.warm_start else None,
+            refine=refine, fused=self.fused,
+        )
+        self._state = stream.state
+        self.problem = self.problem.update_constraint(
+            slot, A=None if A_seq is None else A_seq[-1], b=b_seq[-1])
+        return stream
 
     # ------------------------------------------------------------------ #
     # getter parity (task-solver-base.hpp:87-141)

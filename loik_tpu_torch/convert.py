@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .model.tree import KinematicTree, resolve_device
+from .parallel.mixed import MixedPadded
 from .problem import IkProblem
 from .solver.state import SolverState
 
@@ -32,8 +33,9 @@ def _tensor(x, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
 
 
 def tree_from_arrays(tree, device=None, dtype: Optional[torch.dtype] = None) -> KinematicTree:
-    """A port tree from a `loik_tpu` KinematicTree: same topology, leaves,
-    joint codes and static extras (pitches, mimic metadata)."""
+    """A port tree from a `loik_tpu` KinematicTree: same topology, leaves
+    (batched (N, B, ...) geometry leaves included), joint codes and static
+    extras (pitches, mimic metadata)."""
     def leaf(x):
         return None if x is None else _tensor(x, device, dtype)
 
@@ -69,6 +71,18 @@ def problem_from_arrays(problem, device=None,
         lb=_tensor(problem.lb, device, dtype),
         ub=_tensor(problem.ub, device, dtype),
         constraint_links=tuple(int(c) for c in problem.constraint_links),
+    )
+
+
+def mixed_from_arrays(mp, device=None,
+                      dtype: Optional[torch.dtype] = None) -> MixedPadded:
+    """A port MixedPadded from a `loik_tpu` MixedPadded: its batched-geometry
+    chain, its combined problem and the group bookkeeping."""
+    return MixedPadded(
+        chain=tree_from_arrays(mp.chain, device, dtype),
+        problem=problem_from_arrays(mp.problem, device, dtype),
+        group_sizes=tuple(int(b) for b in mp.group_sizes),
+        group_njoints=tuple(int(n) for n in mp.group_njoints),
     )
 
 

@@ -9,9 +9,10 @@
 //
 // Preconditions (kernels/fused.py::fused_eligibility names the first one a
 // call breaks): at most LOIK_MAX_JOINTS joints with at most LOIK_MAX_NV
-// dofs in all, joints of 1 to 6 dofs with a constant motion subspace, at
-// most LOIK_MAX_CONSTRAINTS constraints on distinct links, 1..1024 threads
-// per block.
+// dofs in all, joints of 1 to 6 dofs whose motion subspace does not depend
+// on q, at most LOIK_MAX_CONSTRAINTS constraints on distinct links, 1..1024
+// threads per block; per-problem subspaces (S_all) only for chains of at
+// most LOIK_SMALL_JOINTS one-dof joints.
 //
 // What bounds it on this card: latency, not either roof.  Counting each input
 // read once and each output written once against the iterations a run
@@ -53,6 +54,17 @@
 //   once per tree by the wrapper.  (A per-block copy in shared memory was
 //   measured and gave nothing: every lane reads the same address, which the
 //   L1 serves as a broadcast already.)
+// - Per-problem subspaces (the TPU kernel's S_all input, loik_tpu/kernels/
+//   fused.py:285-306): a tree with batched geometry leaves, the mixed
+//   super-batch's padded chain, has one S per joint AND problem.  It comes
+//   as one more trailing-batch operand (N, 6, 1, B), read like H_ref or
+//   liMi: thread b reads element f at f * B + b, coalesced.  Shared or
+//   per-problem is a template parameter (SALL) of the one-dof instantiation,
+//   picked once per launch by which of the two pointers is set, so the
+//   shared-S code of the flagship arm is unchanged; the general
+//   instantiation does not take S_all.  A padded joint of a mixed chain has
+//   S = 0: U = H S = 0 and D = mu, every product multiplies through the
+//   zeros as the eager loop does, and its nu, z and w stay exactly 0.
 // - Joints of k dofs.  U = H S and U D^-1 are 6 x k, stored by dof
 //   (U[dof][row]); D = S'HS + mu I is k x k and D^-1 comes from the unrolled
 //   Cholesky + triangular inverse + M'M of batched_spatial.spd_inv, in its
@@ -60,10 +72,10 @@
 //   S multiplies through, zeros included (a free flyer's S is eye(6)), as
 //   the eager loop does.  The padded (N, nv_max, B) dof tensors are read
 //   and written at slots j < k only; padded slots stay as they came (zero).
-// - Two instantiations per scalar type: all joints 1-dof and at most 16 of
-//   them (every k is the constant 1, D is a scalar, the frame is short: the
-//   flagship arm), and the general one at the caps.  `launch` picks by the
-//   tree.
+// - Three instantiations per scalar type: all joints 1-dof and at most 16
+//   of them (every k is the constant 1, D is a scalar, the frame is short:
+//   the flagship arm) with shared S, the same with per-problem S, and the
+//   general one at the caps.  `launch` picks by the tree and the operand.
 // - The K > 1 hoist: the H half of the Riccati sweep (H_list, U, D^-1,
 //   U D^-1) depends only on (mu_eq, mu_ineq, liMi) and is computed once per
 //   body call, then shared by the K-1 check-free micro-iterations and the
@@ -101,8 +113,8 @@ struct LoikConfig {
 
 // Order of the pointer array; keep in step with kernels/fused.py (the 24
 // state fields of _STATE_FIELDS, the 10 of _PROB_FIELDS, the 3 optional
-// delta-stage fields, liMi, the motion subspaces, then the input state's
-// loop counter).
+// delta-stage fields, liMi, the shared motion subspaces or the per-problem
+// ones (the other pointer is null), then the input state's loop counter).
 enum LoikPtr {
   P_VIS, P_FIS, P_NU, P_Z, P_W, P_YIS, P_ATY, P_FDPA, P_STFW,
   P_MU, P_MU_EQ, P_MU_INEQ, P_ITERATIONS, P_TAIL_ITERATIONS,
@@ -110,7 +122,7 @@ enum LoikPtr {
   P_RP, P_RD, P_DX, P_DZ, P_IT,
   P_H_REF, P_HV, P_A, P_B, P_ATA, P_ATB, P_LB, P_UB, P_B_INF, P_HV_INF,
   P_R_OFFSET, P_TOL_SCALE_PRIMAL, P_TOL_SCALE_DUAL,
-  P_LIMI_R, P_LIMI_P, P_S, P_IT_IN,
+  P_LIMI_R, P_LIMI_P, P_S, P_S_ALL, P_IT_IN,
   P_COUNT
 };
 
@@ -125,7 +137,8 @@ struct LoikPtrs {
   const T *H_ref, *Hv, *A, *b, *AtA, *Atb, *lb, *ub, *b_inf, *Hv_inf;
   const T *r_offset, *tol_scale_primal, *tol_scale_dual;  // nullptr if absent
   const T *liMi_R, *liMi_p;
-  const T* S;  // (N, 6, nv_max), shared by all problems
+  const T* S;      // (N, 6, nv_max), shared by all problems; or
+  const T* S_all;  // (N, 6, 1, B), one per problem (SALL instantiation)
   const int32_t* it_in;  // () the input state's loop counter
 };
 
@@ -376,7 +389,9 @@ __device__ __forceinline__ void spd_inv(int k, const T* D, T* out) {
 
 // MAXJ joints and MAXNV dofs at most.  MULTI = false: every joint has one
 // dof (k is the constant 1, so the dof loops vanish and D is a scalar).
-template <typename T, int MAXJ, int MAXNV, bool MULTI>
+// SALL = true (one-dof trees only): the motion subspaces are per problem,
+// read from P.S_all instead of the shared P.S.
+template <typename T, int MAXJ, int MAXNV, bool MULTI, bool SALL>
 __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
                                   const __grid_constant__ LoikPtrs<T> P) {
   const int B = cfg.B;
@@ -389,7 +404,9 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
 #define AT(ptr, f) (ptr)[(size_t)(f) * B + b]
   // dofs of joint i; entry (r, c) of its 6 x k motion subspace
 #define NVS(i) (MULTI ? cfg.nvs[i] : 1)
-#define SS(i, r, c) P.S[((i) * 6 + (r)) * KP + (c)]
+#define SS(i, r, c)                                      \
+  (SALL ? P.S_all[(size_t)((i) * 6 + (r)) * B + b]       \
+        : P.S[((i) * 6 + (r)) * KP + (c)])
 
   const T rho = T(cfg.rho);
   const T tol_abs = T(cfg.tol_abs), tol_rel = T(cfg.tol_rel);
@@ -760,6 +777,12 @@ static int launch(const LoikConfig* cfg, void* const* ptrs, int n_ptrs,
       cfg->threads < 1 || cfg->threads > 1024 || cfg->check_interval < 1 ||
       cfg->nv_max < 1 || cfg->nv_max > 6)
     return (int)cudaErrorInvalidValue;
+  // exactly one form of the subspaces; per-problem ones only for one-dof
+  // chains of at most LOIK_SMALL_JOINTS joints
+  const bool s_all = ptrs[P_S_ALL] != nullptr;
+  if (s_all == (ptrs[P_S] != nullptr) ||
+      (s_all && (cfg->nv_max != 1 || cfg->N > LOIK_SMALL_JOINTS)))
+    return (int)cudaErrorInvalidValue;
   int nv = 0;
   for (int i = 0; i < cfg->N; ++i) {
     if (cfg->nvs[i] < 1 || cfg->nvs[i] > cfg->nv_max) return (int)cudaErrorInvalidValue;
@@ -807,13 +830,17 @@ static int launch(const LoikConfig* cfg, void* const* ptrs, int n_ptrs,
   P.liMi_R = (const T*)ptrs[P_LIMI_R];
   P.liMi_p = (const T*)ptrs[P_LIMI_P];
   P.S = (const T*)ptrs[P_S];
+  P.S_all = (const T*)ptrs[P_S_ALL];
   P.it_in = (const int32_t*)ptrs[P_IT_IN];
   const int blocks = (cfg->B + cfg->threads - 1) / cfg->threads;
-  if (cfg->nv_max == 1 && cfg->N <= LOIK_SMALL_JOINTS)
-    fused_admm_kernel<T, LOIK_SMALL_JOINTS, LOIK_SMALL_JOINTS, false>
+  if (s_all)
+    fused_admm_kernel<T, LOIK_SMALL_JOINTS, LOIK_SMALL_JOINTS, false, true>
+        <<<blocks, cfg->threads, 0, (cudaStream_t)stream>>>(*cfg, P);
+  else if (cfg->nv_max == 1 && cfg->N <= LOIK_SMALL_JOINTS)
+    fused_admm_kernel<T, LOIK_SMALL_JOINTS, LOIK_SMALL_JOINTS, false, false>
         <<<blocks, cfg->threads, 0, (cudaStream_t)stream>>>(*cfg, P);
   else
-    fused_admm_kernel<T, LOIK_MAX_JOINTS, LOIK_MAX_NV, true>
+    fused_admm_kernel<T, LOIK_MAX_JOINTS, LOIK_MAX_NV, true, false>
         <<<blocks, cfg->threads, 0, (cudaStream_t)stream>>>(*cfg, P);
   return (int)cudaGetLastError();
 }
@@ -833,10 +860,11 @@ int loik_fused_admm_f64(const LoikConfig* cfg, void* const* ptrs, int n_ptrs,
 
 // The compile-time layout the wrapper must agree with.
 void loik_fused_admm_abi(int* max_joints, int* max_nv, int* max_constraints,
-                         int* n_ptrs, int* config_bytes) {
+                         int* small_joints, int* n_ptrs, int* config_bytes) {
   *max_joints = LOIK_MAX_JOINTS;
   *max_nv = LOIK_MAX_NV;
   *max_constraints = LOIK_MAX_CONSTRAINTS;
+  *small_joints = LOIK_SMALL_JOINTS;
   *n_ptrs = P_COUNT;
   *config_bytes = (int)sizeof(LoikConfig);
 }

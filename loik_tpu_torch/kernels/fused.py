@@ -13,10 +13,22 @@ A build or launch failure raises; it is never turned into the eager loop.
 Preconditions of the kernel (`fused_eligibility` names the first one a call
 breaks): no logging, no verbose, float32 on the public path (the kernel
 also has a float64 instantiation, reachable through `fused_solve_loop`),
-constant motion subspaces (no universal, spherical-ZYX or mimic-pair
-joint), at most MAX_JOINTS joints with at most MAX_NV dofs in all (joints of
-1 to 6 dofs: D = S'HS + mu I is a k x k block inverted in the kernel),
-at most MAX_CONSTRAINTS constraints, and 1..1024 threads per block.
+motion subspaces that do not depend on q (no universal, spherical-ZYX or
+mimic-pair joint), at most MAX_JOINTS joints with at most MAX_NV dofs in all
+(joints of 1 to 6 dofs: D = S'HS + mu I is a k x k block inverted in the
+kernel), at most MAX_CONSTRAINTS constraints, and 1..1024 threads per block.
+
+The kernel takes the motion subspaces in one of two forms.  A tree with
+plain geometry leaves has one S per joint, shared by all problems: a small
+(N, 6, nv_max) device tensor built once per tree and kept
+(`_subspace_operand`).  A tree with batched geometry leaves (the mixed
+super-batch's padded chain, `parallel/mixed.py`) has one S per joint and
+problem: `with_S_all` precomputes them as `PreparedProblem.S_all`
+(N, 6, K, B), batch trailing like every other per-problem operand, and the
+kernel reads them as data.  `S_all` is taken by the instantiation for
+chains of at most SMALL_JOINTS one-dof joints only (what a mixed chain is);
+which form a launch uses is a template parameter of that instantiation, so
+the shared-S launch of the flagship arm is the code it was.
 
 What bounds it: latency, far above either roof (its floor is the bytes it
 must move, a few KB per problem; chip_smoke.py computes it per run).  One
@@ -25,10 +37,9 @@ with its working set in local memory (ptxas: a stack frame of 3968 B in
 float and 7936 B in double for trees of up to 16 one-dof joints, 11840 B and
 23360 B for the general instantiation at the caps of 40 joints and 48 dofs,
 no spills; PERF.md), so the card's threads are few and each waits on its own
-loads.
-The motion subspaces are one small (N, 6, nv_max) device tensor per tree,
-built once and kept (`_subspace_operand`), so a launch reads nothing back
-from the device and packs only ints and six doubles on the host.
+loads.  A launch reads nothing back from the device and packs only ints and
+six doubles on the host, so a stream of launches (tracking ticks, staged
+super-batches) enqueues without a host synchronisation.
 """
 
 from __future__ import annotations
@@ -51,6 +62,9 @@ from ..solver.state import PreparedProblem, SolverState, SolveResult
 MAX_JOINTS = 40
 MAX_NV = 48
 MAX_CONSTRAINTS = 8
+# cap of the instantiation for chains of one-dof joints (LOIK_SMALL_JOINTS),
+# the one that takes per-problem subspaces (S_all)
+SMALL_JOINTS = 16
 
 # number of kernel launches in this process: a run can read it to show that
 # its main path went through the kernel
@@ -73,8 +87,9 @@ _FIELD_DTYPES = {
     "dual_infeasible": torch.bool, "in_tail": torch.bool, "running": torch.bool,
     "it": torch.int32,
 }
-# state fields, problem fields, optional fields, liMi_R, liMi_p, S, input `it`
-_N_PTRS = len(_STATE_FIELDS) + len(_PROB_FIELDS) + len(_OPTIONAL_FIELDS) + 4
+# state fields, problem fields, optional fields, liMi_R, liMi_p, S (shared)
+# or S_all (per problem; the other is null), input `it`
+_N_PTRS = len(_STATE_FIELDS) + len(_PROB_FIELDS) + len(_OPTIONAL_FIELDS) + 5
 
 
 class _LoikConfig(ctypes.Structure):
@@ -108,18 +123,19 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 6
     lib.loik_fused_admm_abi.restype = None
     lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
     lib.loik_cuda_error_string.restype = ctypes.c_char_p
-    abi = [ctypes.c_int() for _ in range(5)]
+    abi = [ctypes.c_int() for _ in range(6)]
     lib.loik_fused_admm_abi(*[ctypes.byref(x) for x in abi])
-    want = (MAX_JOINTS, MAX_NV, MAX_CONSTRAINTS, _N_PTRS, ctypes.sizeof(_LoikConfig))
+    want = (MAX_JOINTS, MAX_NV, MAX_CONSTRAINTS, SMALL_JOINTS, _N_PTRS,
+            ctypes.sizeof(_LoikConfig))
     if tuple(x.value for x in abi) != want:
         raise RuntimeError(
             f"kernel library layout {tuple(x.value for x in abi)} (max joints, "
-            f"max dofs, max constraints, pointers, config bytes) does not match "
-            f"the wrapper's {want}"
+            f"max dofs, max constraints, one-dof chain joints, pointers, config "
+            f"bytes) does not match the wrapper's {want}"
         )
     return lib
 
@@ -141,9 +157,11 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
     is the eager loop.  The batch need not divide by ``batch_tile``: the
     kernel masks the ragged last block.
 
-    loik_tpu also refuses per-problem ``S_all``; that cannot reach this
-    package yet (its PreparedProblem has no ``S_all``) and comes back with
-    the mixed super-batch (ROADMAP queue 1 item 9)."""
+    A tree with batched geometry leaves runs on per-problem subspaces
+    (``PreparedProblem.S_all``), which only the kernel's instantiation for
+    chains of at most SMALL_JOINTS one-dof joints takes: a taller or
+    multi-dof batched tree is refused here by name (`with_S_all` refuses
+    non-uniform dof counts on its own)."""
     if params.logging:
         return False, ("params.logging is set — the fused kernel has no "
                        "per-iteration log arrays")
@@ -158,6 +176,13 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
         return False, ("tree has configuration-dependent motion subspaces "
                        "(universal/spherical-ZYX/mimic joints): the kernel "
                        "takes one constant S per tree")
+    if tree.has_batched_geometry and (tree.nv_max != 1
+                                      or tree.njoints > SMALL_JOINTS):
+        return False, ("tree has batched geometry leaves (per-problem "
+                       "motion subspaces, S_all) with "
+                       f"{tree.njoints} joints of up to {tree.nv_max} dofs: "
+                       "the kernel takes S_all for chains of at most "
+                       f"{SMALL_JOINTS} one-dof joints (LOIK_SMALL_JOINTS)")
     if tree.njoints > MAX_JOINTS:
         return False, (f"{tree.njoints} joints exceed the kernel's cap of "
                        f"{MAX_JOINTS} (LOIK_MAX_JOINTS)")
@@ -214,12 +239,15 @@ _S_OPERANDS: dict = {}
 
 
 def _subspace_operand(tree, dtype) -> torch.Tensor:
-    """The kernel's S operand: every joint's constant motion subspace,
-    zero-padded to (N, 6, nv_max), in ``dtype`` on the tree's device.  Built
-    once per tree object and dtype; a tree is immutable, and the entry goes
-    when the tree does.  (`KinematicTree.to` returns the tree itself when
-    nothing changes, so a float32 tree on the card keeps its operand from
-    solve to solve.)"""
+    """The kernel's shared S operand: every joint's constant motion
+    subspace, zero-padded to (N, 6, nv_max), in ``dtype`` on the tree's
+    device.  Built once per tree object and dtype; a tree is immutable, and
+    the entry goes when the tree does.  (`KinematicTree.to` returns the tree
+    itself when nothing changes, so a float32 tree on the card keeps its
+    operand from solve to solve.)  Not for trees with batched geometry: their
+    subspaces are per problem and travel as `PreparedProblem.S_all`."""
+    if tree.has_batched_geometry:
+        raise ValueError("a tree with batched geometry has no shared S operand")
     key = (id(tree), dtype)
     hit = _S_OPERANDS.get(key)
     if hit is not None and hit[0]() is tree:
@@ -253,9 +281,16 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     inputs = [operand(n, getattr(prob, n), dtype) for n in _PROB_FIELDS]
     inputs += [None if getattr(prob, n) is None else operand(n, getattr(prob, n), dtype)
                for n in _OPTIONAL_FIELDS]
-    inputs += [operand("liMi_R", st.liMi_R, dtype), operand("liMi_p", st.liMi_p, dtype),
-               operand("S", _subspace_operand(tree, dtype), dtype),
-               operand("it", st.it, torch.int32)]
+    inputs += [operand("liMi_R", st.liMi_R, dtype), operand("liMi_p", st.liMi_p, dtype)]
+    if prob.S_all is not None:
+        if tuple(prob.S_all.shape) != (N, 6, tree.nv_max, B):
+            raise ValueError(
+                f"fused kernel operand S_all: shape {tuple(prob.S_all.shape)}, "
+                f"expected {(N, 6, tree.nv_max, B)}")
+        inputs += [None, operand("S_all", prob.S_all, dtype)]
+    else:
+        inputs += [operand("S", _subspace_operand(tree, dtype), dtype), None]
+    inputs += [operand("it", st.it, torch.int32)]
     tensors = [out[n] for n in _STATE_FIELDS] + inputs
     ptrs = (ctypes.c_void_p * _N_PTRS)(
         *[None if t is None else t.data_ptr() for t in tensors])
@@ -306,6 +341,16 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
                                    num_constraints=len(prob.constraint_links))
     if not ok:
         raise ValueError(f"fused_solve_loop: {reason}")
+    if tree.has_batched_geometry and prob.S_all is None:
+        raise ValueError(
+            "fused_solve_loop with batched geometry (axis ndim 3) needs "
+            "precomputed per-problem subspaces in prob.S_all (use solve_fused "
+            "/ _fused_body, which set S_all, or with_S_all)"
+        )
+    if prob.S_all is not None and (tree.nv_max != 1 or tree.njoints > SMALL_JOINTS):
+        raise ValueError(
+            "fused_solve_loop: S_all is taken for chains of at most "
+            f"{SMALL_JOINTS} one-dof joints (LOIK_SMALL_JOINTS)")
     if st.vis.device.type == "cpu":
         return _solve_loop(tree, prob, params, st)
     if st.vis.device.type != "cuda":
@@ -313,13 +358,43 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
     return _launch(tree, params, prob, st, batch_tile)
 
 
+def with_S_all(tree, prob: PreparedProblem, dtype) -> PreparedProblem:
+    """Attach precomputed per-problem motion subspaces for batched-geometry
+    trees (axis (N, B, 3), the mixed super-batch path): inside the kernel S
+    is DATA, not computation — (N, 6, K, B) built once at prepare time."""
+    K = tree.nv_max
+    if any(k != K for k in tree.nvs):
+        raise ValueError(
+            "fused path with batched geometry needs uniform joint "
+            "dof counts (serial 1-dof chains)"
+        )
+    S_all = torch.stack(
+        [tree.joint_S(i).to(dtype).movedim(0, -1) for i in range(tree.njoints)]
+    ).contiguous()
+    return dataclasses.replace(prob, S_all=S_all)
+
+
+def fused_loop(batch_tile: Optional[int]):
+    """`fused_solve_loop` in the ``loop(tree, prob, params, st)`` form that
+    `_solve_impl` takes; a batched-geometry tree gets its `S_all` here."""
+    def loop(tree, prob, params, st):
+        if tree.has_batched_geometry and prob.S_all is None:
+            prob = with_S_all(tree, prob, st.vis.dtype)
+        return fused_solve_loop(tree, params, prob, st, batch_tile)
+
+    return loop
+
+
 def _fused_body(params, batch_tile, tree, q, problem, warm_state) -> SolveResult:
     """The fused solve on a validated (B, nq) q (also stage 1 of
     refine.solve_delta_duals)."""
-    def loop(tree_, prob_, params_, st_):
-        return fused_solve_loop(tree_, params_, prob_, st_, batch_tile)
-
-    return _solve_impl(tree, params, q, problem, warm_state, loop=loop)
+    if tree.has_q_dependent_S:
+        raise ValueError(
+            "the fused kernel does not support configuration-dependent "
+            "motion subspaces (universal joints); use solver.solve"
+        )
+    return _solve_impl(tree, params, q, problem, warm_state,
+                       loop=fused_loop(batch_tile))
 
 
 def solve_fused(tree, params: SolverParams, q, problem: IkProblem,

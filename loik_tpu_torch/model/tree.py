@@ -103,6 +103,9 @@ class KinematicTree:
     """Frozen kinematic tree: static topology, tensor geometry."""
 
     # --- tensor leaves ---
+    # placement_R, placement_p and axis may carry one batch axis after the
+    # joint axis, (N, B, ...): per-problem geometry, used by the mixed
+    # super-batch (parallel/mixed.py) for chains of 1-dof joints
     placement_R: torch.Tensor     # (N, 3, 3) fixed joint placement rotation (parent frame)
     placement_p: torch.Tensor     # (N, 3) fixed joint placement translation
     axis: torch.Tensor            # (N, 3) unit motion axis; unused by axis-free types
@@ -237,28 +240,35 @@ class KinematicTree:
         computes per-problem subspaces at solve time."""
         return any(t in _Q_DEPENDENT for t in self.jtypes)
 
+    @property
+    def has_batched_geometry(self) -> bool:
+        """True when the geometry leaves carry a per-problem batch axis
+        (axis of shape (N, B, 3)): the mixed super-batch's padded chain."""
+        return self.axis.ndim == 3
+
     def _const(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=self.dtype, device=self.device)
 
     def joint_S(self, i: int, q: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Motion subspace of joint i, shape (6, nv_i), [linear; angular] rows.
 
-        Universal, spherical-ZYX and mimic-pair joints are configuration-
-        dependent: pass ``q`` (shape (..., nq)); batch dims of ``q`` lead the
-        result."""
+        With batched geometry leaves (axis of shape (N, B, 3)) the 1-dof
+        subspaces gain a LEADING batch dim: (B, 6, 1).  Universal,
+        spherical-ZYX and mimic-pair joints are configuration-dependent:
+        pass ``q`` (shape (..., nq)); batch dims of ``q`` lead the result."""
         t = self.jtypes[i]
-        if t in (REVOLUTE, REVOLUTE_UNBOUNDED):
-            ax = self.axis[i][:, None]
-            return torch.cat([torch.zeros_like(ax), ax], dim=0)
-        if t == PRISMATIC:
-            ax = self.axis[i][:, None]
-            return torch.cat([ax, torch.zeros_like(ax)], dim=0)
-        if t == HELICAL:
-            # screw twist [pitch*a; a]: pitch is the translation per RADIAN
-            # of rotation (pinocchio JointModelHelical convention, v = h*w)
-            ax = self.axis[i][:, None]
-            h = float(self.pitches[i]) if self.pitches is not None else 0.0
-            return torch.cat([h * ax, ax], dim=0)
+        if t in (REVOLUTE, REVOLUTE_UNBOUNDED, PRISMATIC, HELICAL):
+            ax = self.axis[i]                                 # (3,) or (B, 3)
+            if t == PRISMATIC:
+                col = torch.cat([ax, torch.zeros_like(ax)], dim=-1)
+            elif t == HELICAL:
+                # screw twist [pitch*a; a]: pitch is the translation per
+                # RADIAN of rotation (pinocchio JointModelHelical, v = h*w)
+                h = float(self.pitches[i]) if self.pitches is not None else 0.0
+                col = torch.cat([h * ax, ax], dim=-1)
+            else:
+                col = torch.cat([torch.zeros_like(ax), ax], dim=-1)
+            return col[..., None]                             # (..., 6, 1)
         eye3 = torch.eye(3, dtype=self.dtype, device=self.device)
         if t == FREE_FLYER:
             return torch.eye(6, dtype=self.dtype, device=self.device)
@@ -324,13 +334,14 @@ class KinematicTree:
         return torch.cat([torch.zeros_like(ang), ang], dim=-2)
 
     def joint_S_padded(self, q: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """All subspaces zero-padded to (N, 6, nv_max); pass ``q`` (unbatched)
-        when the tree holds configuration-dependent joints."""
+        """All subspaces zero-padded to (N, 6, nv_max), or (N, B, 6, nv_max)
+        with batched geometry leaves; pass ``q`` (unbatched) when the tree
+        holds configuration-dependent joints."""
         nvm = self.nv_max
         mats = []
         for i in range(self.njoints):
             S = self.joint_S(i, q)
-            mats.append(torch.nn.functional.pad(S, (0, nvm - S.shape[1])))
+            mats.append(torch.nn.functional.pad(S, (0, nvm - S.shape[-1])))
         return torch.stack(mats)
 
     def dof_mask_padded(self) -> torch.Tensor:
@@ -347,8 +358,9 @@ class KinematicTree:
         """M(q_i): joint displacement (R, p) in the joint's local frame.
 
         q has shape (..., nq); batching over leading dims is supported.
-        Mirrors `jmodel.calc(jdata, q)` in FwdPassInit
-        (loik-loid-optimized.hxx:263)."""
+        With batched geometry leaves the joint's axis is (B, 3) and
+        broadcasts against a (B, nq) q.  Mirrors `jmodel.calc(jdata, q)` in
+        FwdPassInit (loik-loid-optimized.hxx:263)."""
         t = self.jtypes[i]
         iq = self.idx_q[i]
         ax = self.axis[i]
@@ -522,7 +534,8 @@ class KinematicTree:
         Returns ``(liMi_R, liMi_p, oMi_R, oMi_p)`` each with leading batch
         dims of ``q`` and a joint axis of size N.  ``liMi = placement * M(q)``
         and ``oMi = oMi[parent] * liMi`` exactly as FwdPassInit
-        (loik-loid-optimized.hxx:264-265)."""
+        (loik-loid-optimized.hxx:264-265).  Batched placements (B, 3, 3)
+        compose with the (B, 3, 3) joint transforms problem by problem."""
         liMi_R, liMi_p, oMi_R, oMi_p = [], [], [], []
         for i in range(self.njoints):
             Rj, pj = self.joint_calc(i, q)

@@ -9,6 +9,7 @@ constraint *values* (A, b) are tensors that per-tick updates replace.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Tuple
 
 import torch
@@ -58,6 +59,28 @@ class IkProblem:
         return new
 
 
+# id(lb) -> (weak reference to lb, weak reference to ub) of bound tensors
+# already found consistent
+_BOUNDS_CHECKED: dict = {}
+
+
+def _check_bounds(lb: torch.Tensor, ub: torch.Tensor) -> None:
+    """Raise if lb > ub anywhere.  Reading the answer waits for the device,
+    so each pair of bound tensors is read once: a stream of solves on one
+    problem (tracking ticks, staged super-batches, `update_constraint`, which
+    keeps the bound tensors) then enqueues without a host synchronisation.
+    The bounds of a problem are not to be written in place afterwards."""
+    key = id(lb)
+    hit = _BOUNDS_CHECKED.get(key)
+    if hit is not None and hit[0]() is lb and hit[1]() is ub:
+        return
+    if bool((lb > ub).any()):
+        raise ValueError("lb > ub: box bounds are contradictory")
+    _BOUNDS_CHECKED[key] = (
+        weakref.ref(lb, lambda _: _BOUNDS_CHECKED.pop(key, None)),
+        weakref.ref(ub))
+
+
 def validate_problem(tree, problem: IkProblem) -> None:
     """Input validation — the `checkIkIdData` analog
     (loik-loid-data.hpp:244-321): reject out-of-range or duplicate constraint
@@ -96,8 +119,7 @@ def validate_problem(tree, problem: IkProblem) -> None:
     chk("b", problem.b, (nc, 6))
     chk("lb", problem.lb, (nv,))
     chk("ub", problem.ub, (nv,))
-    if bool((problem.lb > problem.ub).any()):
-        raise ValueError("lb > ub: box bounds are contradictory")
+    _check_bounds(problem.lb, problem.ub)
 
 
 def make_problem(tree, constraint_links, A=None, b=None, H_ref=None,

@@ -1,10 +1,14 @@
 from .refine import solve_delta_duals
-from .solve import fwd_pass_init, prepare_problem, solve
+from .solve import fwd_pass_init, prepare_problem, solve, solve_from_fk
 from .state import PreparedProblem, SolverState, SolveResult, init_state
+from .stream import StreamResult, solve_stream
 
 __all__ = [
     "solve",
     "solve_delta_duals",
+    "solve_from_fk",
+    "solve_stream",
+    "StreamResult",
     "prepare_problem",
     "fwd_pass_init",
     "SolverState",

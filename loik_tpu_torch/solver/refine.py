@@ -135,10 +135,9 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
     f32, f64 = torch.float32, torch.float64
     B = q.shape[0]
     if fused:
-        from ..kernels.fused import fused_solve_loop
+        from ..kernels.fused import fused_loop
 
-        def loop(tree, prob, params, st):
-            return fused_solve_loop(tree, params, prob, st, batch_tile)
+        loop = fused_loop(batch_tile)
     else:
         loop = _solve_loop
 
@@ -174,6 +173,13 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
 
         # ---- the f32 delta problem ---------------------------------------
         pp32 = prepare_problem(tree32, prob32, B, f32)
+        if tree32.has_batched_geometry:
+            # batched geometry (mixed super-batch): precompute per-problem
+            # subspaces once; both the fused stage-2 kernel and the eager
+            # loop consume them as data
+            from ..kernels.fused import with_S_all
+
+            pp32 = with_S_all(tree32, pp32, f32)
         prob_d = dataclasses.replace(
             pp32,
             Hv=(-d0_v).to(f32),

@@ -110,11 +110,20 @@ def fwd_pass_init(tree, q):
 def _S_lists(tree, prob: PreparedProblem, dtype):
     """Per-joint motion subspaces, exact dof sizes: the prepared problem's
     per-problem (6, k, B) tiles when the tree has configuration-dependent
-    subspaces, else the constant (6, k, 1), whose trailing axis of 1
-    broadcasts against the batch."""
+    subspaces (`S_list`) or batched geometry (`S_all`, uniform k), else the
+    constant (6, k, 1), whose trailing axis of 1 broadcasts against the
+    batch.  A batched-geometry tree without `S_all` gives its (B, 6, k)
+    subspaces with the batch moved to the trailing axis: the same values."""
     if prob.S_list is not None:
         return list(prob.S_list)
-    return [tree.joint_S(i).to(dtype)[:, :, None] for i in range(tree.njoints)]
+    if prob.S_all is not None:
+        return [prob.S_all[i] for i in range(tree.njoints)]
+
+    def tile(i):
+        Si = tree.joint_S(i).to(dtype)
+        return Si.movedim(0, -1) if Si.ndim == 3 else Si[:, :, None]
+
+    return [tile(i) for i in range(tree.njoints)]
 
 
 def q_dependent_S_list(tree, q, dtype):
@@ -588,11 +597,13 @@ def _reset_state(tree, params: SolverParams, st: SolverState, dtype) -> SolverSt
 
 
 def _flat_nu(tree, padded):
-    """(N,K,B) padded dof array -> (B, nv) flat joint velocities."""
+    """(N,K,B) padded dof array -> (B, nv) flat joint velocities.  Slices
+    only: an index tensor would be a host-to-device copy, which blocks the
+    host, in every solve and every tracking tick."""
     N, K = padded.shape[0], padded.shape[1]
-    flat = padded.reshape(N * K, -1)
-    idx = torch.tensor(tree.padded_to_flat, device=padded.device)
-    return flat[idx].movedim(-1, 0)
+    if tree.nv == N * K:  # every joint fills its slots (1-dof chains)
+        return padded.reshape(N * K, -1).movedim(-1, 0)
+    return torch.cat([padded[i, :k] for i, k in enumerate(tree.nvs)]).movedim(-1, 0)
 
 
 def _result(tree, st: SolverState) -> SolveResult:
@@ -626,25 +637,50 @@ def _as_batch(tree, q) -> torch.Tensor:
 
 
 def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
-                warm_state: Optional[SolverState], loop=_solve_loop) -> SolveResult:
+                warm_state: Optional[SolverState], loop=_solve_loop,
+                liMi=None) -> SolveResult:
     """FK, prepare, reset, then ``loop`` (the eager loop here; the fused
-    kernel's wrapper in `kernels/fused.py`) on the trailing-batch state."""
+    kernel's wrapper in `kernels/fused.py`) on the trailing-batch state.
+
+    liMi: ``(liMi_R, liMi_p)`` from `fwd_pass_init` when the caller froze FK
+    (the SolveInit/Solve split, loik-loid-optimized.hpp:335-361); q may then
+    be None, except for trees with configuration-dependent subspaces."""
     with full_f32_matmul():
-        dtype = q.dtype
-        B = q.shape[0]
+        if liMi is None:
+            dtype, B, dev = q.dtype, q.shape[0], q.device
+            liMi_R, liMi_p = fwd_pass_init(tree, q)
+        else:
+            liMi_R, liMi_p = liMi
+            dtype, B, dev = liMi_R.dtype, liMi_R.shape[-1], liMi_R.device
         prob = prepare_problem(tree, problem, B, dtype)
         if tree.has_q_dependent_S:
+            if q is None:
+                raise ValueError(
+                    "trees with configuration-dependent motion subspaces "
+                    "(universal joints) need q: the SolveInit/Solve FK-frozen "
+                    "split cannot reconstruct S from liMi — use solve()"
+                )
             prob = dataclasses.replace(
                 prob, S_list=q_dependent_S_list(tree, q, dtype))
         if warm_state is None:
-            st = init_state(tree, B, problem.num_constraints, dtype, q.device)
+            st = init_state(tree, B, problem.num_constraints, dtype, dev)
         else:
             st = warm_state
         st = _reset_state(tree, params, st, dtype)
-        liMi_R, liMi_p = fwd_pass_init(tree, q)
         st = dataclasses.replace(st, liMi_R=liMi_R, liMi_p=liMi_p)
         st = loop(tree, prob, params, st)
     return _result(tree, st)
+
+
+def solve_from_fk(tree, params: SolverParams, liMi_R, liMi_p,
+                  problem: IkProblem,
+                  warm_state: Optional[SolverState] = None) -> SolveResult:
+    """Solve with FK frozen: takes (liMi_R, liMi_p) from `fwd_pass_init`
+    instead of q, so repeated re-solves never redo the FK sweep — the
+    `SolveInit()` + `Solve()` split of the reference
+    (loik-loid-optimized.hpp:335-361)."""
+    return _solve_impl(tree, params, None, problem, warm_state,
+                       liMi=(liMi_R, liMi_p))
 
 
 def solve(tree, params: SolverParams, q, problem: IkProblem,

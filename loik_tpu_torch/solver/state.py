@@ -45,6 +45,11 @@ class PreparedProblem:
     # with configuration-dependent S (universal / spherical-ZYX / mimic-pair
     # joints): computed once per solve from q, like liMi
     S_list: Optional[Tuple[torch.Tensor, ...]] = None
+    # optional precomputed per-problem motion subspaces (N, 6, K, B), K
+    # uniform across joints, for trees with batched geometry leaves (the
+    # mixed super-batch): S is iteration-constant, so the fused kernel and
+    # the eager loop read it as data (`kernels.fused.with_S_all`)
+    S_all: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -42,7 +42,9 @@ def test_the_scan_covers_the_package():
     assert {"chip_smoke.py", "loik_tpu_torch/__init__.py",
             "loik_tpu_torch/kernels/fused.py", "loik_tpu_torch/solver/solve.py",
             "loik_tpu_torch/model/builders.py", "loik_tpu_torch/model/robots.py",
-            "loik_tpu_torch/model/urdf.py", "loik_tpu_torch/convert.py"} <= names
+            "loik_tpu_torch/model/urdf.py", "loik_tpu_torch/convert.py",
+            "loik_tpu_torch/parallel/__init__.py", "loik_tpu_torch/parallel/mixed.py",
+            "loik_tpu_torch/solver/stream.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

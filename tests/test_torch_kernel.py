@@ -56,6 +56,15 @@ def prepared_path(name, B, check_interval, dtype=torch.float32, device="cpu", ma
     return tree, params, prob, st
 
 
+def prepared_mixed(Bg, check_interval, dtype=torch.float32, max_iter=200):
+    """(chain, params, prepared problem with S_all, reset state with FK) of
+    chip_smoke.py's mixed super-batch: Bg UR5 + Bg panda_arm on the card."""
+    mp, groups, params = chip_smoke.mixed_setup(lt, torch, dtype, Bg, check_interval, max_iter)
+    q = mp.pack_q([q for _, q, _ in groups])
+    prob, st = chip_smoke.initial_state(tsm, mp.chain, mp.problem, params, q)
+    return mp.chain, params, fused.with_S_all(mp.chain, prob, dtype), st
+
+
 def states_equal(a, b):
     for name in fused._STATE_FIELDS:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
@@ -171,6 +180,92 @@ def test_delta_duals_kernel_path_equals_eager_path_on_card():
         assert torch.equal(getattr(res, name), getattr(ref, name)), name
     states_equal(res.state, ref.state)
     assert res.converged.double().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check_interval", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_with_per_problem_subspaces_matches_eager_loop_on_card(dtype, check_interval):
+    """The mixed chain (500 UR5 + 500 panda_arm, a ragged last block): S_all
+    read as data gives the eager loop's bits, and the padded joint of the UR5
+    rows stays exactly zero."""
+    _need_card()
+    chain, params, prob, st = prepared_mixed(500, check_interval, dtype)
+    assert prob.S_all.shape == (7, 6, 1, 1000)
+    n0 = fused.LAUNCHES
+    ker = fused.fused_solve_loop(chain, params, prob, st, batch_tile=128)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 1
+    states_equal(ker, tsm._solve_loop(chain, prob, params, st))
+    states_equal(ker, tsm._solve_loop(chain, dataclasses.replace(prob, S_all=None), params, st))
+    for field in ("nu", "z", "w", "stfw"):
+        assert not getattr(ker, field)[6, :, :500].any(), field
+    assert ker.converged.double().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_shared_subspaces_as_S_all_give_the_same_bits_on_card():
+    _need_card()
+    params = lt.SolverParams(**FLAGSHIP, check_interval=8)
+    tree, prob, st = prepared(params, B=1000, device="cuda")
+    S = fused._subspace_operand(tree, torch.float32)
+    prob_S = dataclasses.replace(prob, S_all=S[..., None].expand(S.shape + (1000,)).contiguous())
+    states_equal(fused.fused_solve_loop(tree, params, prob_S, st),
+                 fused.fused_solve_loop(tree, params, prob, st))
+
+
+@pytest.mark.cuda
+def test_mixed_delta_duals_kernel_path_equals_eager_path_on_card():
+    _need_card()
+    mp, groups, params = chip_smoke.mixed_setup(lt, torch, torch.float32, 256, 4)
+    qs = [q for _, q, _ in groups]
+    n0 = fused.LAUNCHES
+    res = mp.solve_packed(params, qs, solve_fn=lambda t, p, q, pr: lt.solve_delta_duals(
+        t, p, q, pr, fused="require"))
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 2
+    ref = mp.solve_packed(params, qs, solve_fn=lambda t, p, q, pr: lt.solve_delta_duals(
+        t, p, q, pr, fused=False))
+    for field in ("nu", "z", "vis", "converged", "primal_infeasible", "iterations",
+                  "primal_residual", "dual_residual"):
+        assert torch.equal(getattr(res, field), getattr(ref, field)), field
+    states_equal(res.state, ref.state)
+    assert not res.nu[:256, 6].any()
+
+
+@pytest.mark.cuda
+def test_tracking_ticks_on_card_equal_eager_ticks():
+    """Warm ticks: each launch takes the previous launch's state; one launch
+    per tick, through track_scan and through solve_tracking."""
+    _need_card()
+    tree, links, problem, params, q = chip_smoke.config(
+        lt, torch, "flagship", torch.float32, torch.device("cuda"), 512, 1)
+    params = params.replace(tol_abs=1e-4, tol_rel=1e-4, warm_start=True)
+    T = 6
+    b_seq = torch.zeros((T, 6), device="cuda")
+    b_seq[:, 2] = 0.2 * torch.cos(2 * torch.pi * torch.arange(T, device="cuda") / T)
+    kern = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    n0 = fused.LAUNCHES
+    got = kern.track_scan(q, b_seq)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + T
+    want = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False).track_scan(q, b_seq)
+    states_equal(got.state, want.state)
+    ticker = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    for t in range(T):
+        res = ticker.solve_tracking(q, links[0], b=b_seq[t])
+        assert torch.equal(res.nu, got.nu[t]) and torch.equal(res.nu, want.nu[t])
+        assert torch.equal(res.iterations, want.iterations[t])
+    assert fused.LAUNCHES == n0 + 2 * T
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_S_all_outside_the_one_dof_instantiation():
+    _need_card()
+    tree, params, prob, st = prepared_path("solo12", 64, 4, device="cuda")
+    bad = dataclasses.replace(prob, S_all=torch.zeros((13, 6, 6, 64), device="cuda"))
+    with pytest.raises(ValueError, match="S_all is taken for chains"):
+        fused.fused_solve_loop(tree, params, bad, st)
 
 
 @pytest.mark.cuda
