@@ -29,7 +29,9 @@ Two are the fleet paths:
 Phases (any failure raises, so the script exits nonzero):
   1. a CUDA device, and the card's name and power limit from nvidia-smi;
   2. the kernel library built with nvcc from the sources in the checkout,
-     with the build time and ptxas' register and spill report;
+     with the build time, ptxas' register, stack and spill report, and for
+     every path the shared memory one problem's frame takes (sized by the
+     tree) and the problems per block the wrapper chooses;
   3. the double instantiation against the eager float64 loop on the
      flagship at B=1024, check_interval 1 and 8: every state field within
      1e-9 abs-or-rel, iterations and flags equal;
@@ -48,7 +50,8 @@ Phases (any failure raises, so the script exits nonzero):
      warm-up; the kernel's own device time from torch.profiler beside it),
      the least time the card could take for the same work is computed
      from this run's shapes and iteration counts, and stage 1 is timed
-     again at other block sizes and on a 64th and an 8th of the batch;
+     again at other numbers of problems per block and on a 64th and an 8th
+     of the batch;
   6. multi-dof joints and tall trees against the eager loop: the double
      instantiation on solo12 (B=1024, check_interval 1 and 4) and talos
      (B=256, check_interval 1) within 1e-9, padded dof slots zero; the float
@@ -500,16 +503,20 @@ def main_path(mods, name, phase):
     rep = stage_report(mods, captured)
     launch = fused_mod.fused_solve_loop
 
-    # threads per block: stage 1 again at other block sizes
+    # problems per block (8 lanes each): stage 1 again at other tiles; the
+    # wrapper lowers a tile to what the block's shared memory holds
     tree_, params_, prob_, st_, bt = captured[0]
-    tiles = {t: cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, t))
-             for t in (32, 64, 128, 256)}
-    log("    stage 1 by threads per block: "
+    tiles = {}
+    for t in (2, 4, 8, 16, 32):
+        fit = fused_mod.problems_per_block(tree_.nvs, len(links), torch.float32, t)
+        if fit not in tiles:
+            tiles[fit] = cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, t))
+    log("    stage 1 by problems per block: "
         + ", ".join(f"{t}: {ms:.3f} ms" for t, ms in tiles.items()))
 
     # batch size: stage 1 again on the first n problems, with the longest
     # and the mean iteration count among them (the launch lasts as long as
-    # its slowest thread)
+    # its slowest problem)
     sizes = []
     for n in (B // 64, B // 8, B):
         prob_n, st_n = batch_prefix(torch, prob_, B, n), batch_prefix(torch, st_, B, n)
@@ -557,12 +564,12 @@ def float_lockstep(mods, phase, name, B):
             raise AssertionError(f"f32 lockstep {name} max_iter={mi}: {errs}")
 
 
-def mixed_setup(lt, torch, dtype, Bg, check_interval, max_iter=200):
+def mixed_setup(lt, torch, dtype, Bg, check_interval, max_iter=200, device="cuda"):
     """Bg UR5 + Bg panda_arm as one padded super-batch: the prepared
     `MixedPadded`, the groups [(tree, seeded q, problem)] and the params.
     Each problem: one 6-D end-effector constraint, v_z = 0.2, box = the
     model's velocity limits capped at 4."""
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     ds = str(dtype).removeprefix("torch.")
     gen = torch.Generator(device=dev).manual_seed(0)
     groups = []
@@ -902,6 +909,26 @@ def tracking_path(mods, phase):
     return entries
 
 
+def frame_report(mods):
+    """Per path: the shared memory of one problem's frame and of the block's
+    copy of S, and the problems per block at the default tile."""
+    torch, lt, fused_mod, _, rf, _ = mods
+    chain = ((1,) * 7, 1, True)          # the mixed super-batch's padded chain
+    shapes = {"mixed": chain}
+    for name, nc in (("flagship", 1), ("solo12", 5), ("talos", 2)):
+        robot = "panda_arm" if name == "flagship" else name
+        shapes[name] = (lt.robots.get(robot, "float32").nvs, nc, False)
+    for name, (nvs, nc, s_all) in shapes.items():
+        frame, block = fused_mod.frame_words(nvs, nc, s_all)
+        tile = rf.default_batch_tile(len(nvs))
+        per = {dt: fused_mod.problems_per_block(nvs, nc, dt, tile, s_all)
+               for dt in (torch.float32, torch.float64)}
+        log(f"    {name}: {len(nvs)} joints, {sum(nvs)} dofs, {nc} constraints: frame "
+            f"{frame * 4} B per problem in float32 ({frame * 8} B in float64), S "
+            f"{block * 4} B per block; problems per block {per[torch.float32]} "
+            f"({per[torch.float64]}), x {fused_mod.LANES} lanes")
+
+
 def main() -> None:
     import torch
 
@@ -937,6 +964,7 @@ def main() -> None:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    " + line.strip())
+    frame_report(mods)
 
     # ---- 3, 4. the flagship's instantiation vs the eager loop ------------
     for K in (1, 8):

@@ -2,8 +2,8 @@
 
 Port of `loik_tpu.kernels.fused`.  The TPU version ran `make_loop_body`
 inside one Pallas kernel over tiles of the batch; here
-`csrc/fused_admm.cu` runs the same loop body per problem, one thread per
-problem, with each problem leaving the loop at its own iteration.
+`csrc/fused_admm.cu` runs the same loop body per problem, a group of LANES
+lanes per problem, with each problem leaving the loop at its own iteration.
 
 `fused_solve_loop` launches the kernel for CUDA tensors.  For CPU tensors
 it runs the plain PyTorch loop (`solver.solve._solve_loop`), the twin the
@@ -16,7 +16,9 @@ also has a float64 instantiation, reachable through `fused_solve_loop`),
 motion subspaces that do not depend on q (no universal, spherical-ZYX or
 mimic-pair joint), at most MAX_JOINTS joints with at most MAX_NV dofs in all
 (joints of 1 to 6 dofs: D = S'HS + mu I is a k x k block inverted in the
-kernel), at most MAX_CONSTRAINTS constraints, and 1..1024 threads per block.
+kernel), at most MAX_CONSTRAINTS constraints, a `batch_tile` of 1..1024
+problems per block, and a tree whose one problem fits a block's shared
+memory.
 
 The kernel takes the motion subspaces in one of two forms.  A tree with
 plain geometry leaves has one S per joint, shared by all problems: a small
@@ -27,19 +29,22 @@ problem: `with_S_all` precomputes them as `PreparedProblem.S_all`
 (N, 6, K, B), batch trailing like every other per-problem operand, and the
 kernel reads them as data.  `S_all` is taken by the instantiation for
 chains of at most SMALL_JOINTS one-dof joints only (what a mixed chain is);
-which form a launch uses is a template parameter of that instantiation, so
-the shared-S launch of the flagship arm is the code it was.
+which form a launch uses is a template parameter of that instantiation.
 
 What bounds it: latency, far above either roof (its floor is the bytes it
-must move, a few KB per problem; chip_smoke.py computes it per run).  One
-thread per problem walks a long data-dependent chain of tiny 6x6 products
-with its working set in local memory (ptxas: a stack frame of 3968 B in
-float and 7936 B in double for trees of up to 16 one-dof joints, 11840 B and
-23360 B for the general instantiation at the caps of 40 joints and 48 dofs,
-no spills; PERF.md), so the card's threads are few and each waits on its own
-loads.  A launch reads nothing back from the device and packs only ints and
-six doubles on the host, so a stream of launches (tracking ticks, staged
-super-batches) enqueues without a host synchronisation.
+must move, a few KB per problem; chip_smoke.py computes it per run).  A
+problem is a long data-dependent chain of tiny 6x6 products through a tree,
+and a launch lasts as long as its slowest problem, so the kernel shortens
+the chain of one problem: LANES lanes share it (lane r owns row r of every
+6-vector and 6x6), and the problem's working set — H, U, the joint
+transforms, the whole iterate — lives in a frame in shared memory sized by
+the tree (`frame_words`: about 4 KB for panda_arm and 17 KB for talos in
+float32), read from device memory once and written back once (H_ref and
+AtA, needed once per body call, stay in device memory).
+`problems_per_block` mirrors the kernel's count to choose how many problems
+share a block.  A launch reads nothing back from the device and packs only
+ints and six doubles on the host, so a stream of launches (tracking ticks,
+staged super-batches) enqueues without a host synchronisation.
 """
 
 from __future__ import annotations
@@ -65,6 +70,12 @@ MAX_CONSTRAINTS = 8
 # cap of the instantiation for chains of one-dof joints (LOIK_SMALL_JOINTS),
 # the one that takes per-problem subspaces (S_all)
 SMALL_JOINTS = 16
+# lanes (threads) that share one problem (LOIK_LANES), the partial maxima a
+# lane keeps (LOIK_NACC) and the shared memory one block may use on sm_90
+# (LOIK_MAX_SMEM_BYTES)
+LANES = 8
+_NACC = 16
+MAX_SMEM_BYTES = 232448
 
 # number of kernel launches in this process: a run can read it to show that
 # its main path went through the kernel
@@ -97,7 +108,7 @@ class _LoikConfig(ctypes.Structure):
 
     _fields_ = [
         ("B", ctypes.c_int), ("N", ctypes.c_int), ("NC", ctypes.c_int),
-        ("nv_max", ctypes.c_int), ("threads", ctypes.c_int),
+        ("nv_max", ctypes.c_int), ("tile", ctypes.c_int),
         ("max_iter", ctypes.c_int), ("check_interval", ctypes.c_int),
         ("check_feasibility", ctypes.c_int), ("tail_solve", ctypes.c_int),
         ("parents", ctypes.c_int * MAX_JOINTS),
@@ -114,30 +125,77 @@ _LAUNCH_ARGTYPES = [ctypes.POINTER(_LoikConfig), ctypes.POINTER(ctypes.c_void_p)
 
 
 def _library() -> ctypes.CDLL:
-    """The built kernel library, with its C signatures declared and its
-    compile-time layout checked against this wrapper."""
+    """The built kernel library, bound and checked (`_bind`)."""
     from . import _build
 
-    lib = _build.load()
+    return _bind(_build.load())
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a kernel library and check its
+    compile-time layout against this wrapper."""
     for name in ("loik_fused_admm_f32", "loik_fused_admm_f64"):
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 6
+    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 8
     lib.loik_fused_admm_abi.restype = None
+    lib.loik_fused_admm_frame.argtypes = [
+        ctypes.POINTER(_LoikConfig), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.loik_fused_admm_frame.restype = ctypes.c_int
     lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
     lib.loik_cuda_error_string.restype = ctypes.c_char_p
-    abi = [ctypes.c_int() for _ in range(6)]
+    abi = [ctypes.c_int() for _ in range(8)]
     lib.loik_fused_admm_abi(*[ctypes.byref(x) for x in abi])
     want = (MAX_JOINTS, MAX_NV, MAX_CONSTRAINTS, SMALL_JOINTS, _N_PTRS,
-            ctypes.sizeof(_LoikConfig))
+            ctypes.sizeof(_LoikConfig), LANES, MAX_SMEM_BYTES)
     if tuple(x.value for x in abi) != want:
         raise RuntimeError(
             f"kernel library layout {tuple(x.value for x in abi)} (max joints, "
             f"max dofs, max constraints, one-dof chain joints, pointers, config "
-            f"bytes) does not match the wrapper's {want}"
+            f"bytes, lanes, shared bytes) does not match the wrapper's {want}"
         )
     return lib
+
+
+def frame_words(nvs, num_constraints: int, per_problem_S: bool = False):
+    """(words per problem, words per block) of shared memory the kernel
+    needs for a tree whose joints have ``nvs`` dofs, in words of the scalar
+    type: one problem's frame, and the block's copy of the shared S (none
+    with per-problem S, which sits in the frame).  Mirrors
+    csrc/fused_admm.cu::loik_layout field for field; the built library
+    reports the same numbers (`loik_fused_admm_frame`)."""
+    N, NC, nv = len(nvs), num_constraints, sum(nvs)
+    words = (
+        max(N * 36, _NACC * LANES)          # H; the lanes' partial maxima
+        + 2 * nv * 6 + sum(k * k for k in nvs)   # U, U D^-1, D^-1
+        + 2 * N * 6 + nv                    # p, the dual-residual sums, r
+        + N * (9 + 3 + 9)                   # joint transforms: R, p, [p]x R
+        + 4 * N * 6                         # vis, fis, fdpa, Hv
+        + 3 * NC * 6 + NC * 36 + NC * 6     # yis, Aty, Atb, A, b
+        + 7 * nv                            # nu, z, w, stfw, lb, ub, r_offset
+        + 36 + 36                           # Ha, D
+        + 2 * nv + 2 * NC * 6               # terms of the four ordered sums
+        + (N * 6 if per_problem_S else 0)   # S_all
+        + 3                                 # running, mu_eq, mu_ineq
+    )
+    # an odd stride spreads the lanes of a warp's groups over the banks
+    return words | 1, 0 if per_problem_S else N * 6 * max(nvs)
+
+
+def problems_per_block(nvs, num_constraints: int, dtype, batch_tile: int,
+                       per_problem_S: bool = False) -> int:
+    """Problems that share one block: ``batch_tile`` at most, LANES threads
+    each within 1024 threads, their frames within MAX_SMEM_BYTES; a whole
+    number of warps where more than one warp's worth fits.  0 when not even
+    one problem fits."""
+    frame, block = frame_words(nvs, num_constraints, per_problem_S)
+    size = torch.finfo(dtype).bits // 8
+    fit = (MAX_SMEM_BYTES - block * size) // (frame * size)
+    tile = max(0, min(batch_tile, 1024 // LANES, fit))
+    per_warp = 32 // LANES
+    return tile - tile % per_warp if tile > per_warp else tile
 
 
 # one warning per distinct (call-site, reason): the eager loop is far slower
@@ -155,7 +213,10 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
     casts to float32 internally, so its stages fuse whatever the caller's
     q dtype).  The device is not a condition: on CPU tensors the fused path
     is the eager loop.  The batch need not divide by ``batch_tile``: the
-    kernel masks the ragged last block.
+    kernel masks the ragged last block.  ``batch_tile`` is the most problems
+    a block takes; `problems_per_block` lowers it to what fits the block's
+    threads and shared memory, and a tree whose ONE problem does not fit is
+    refused here (sized for float32 unless ``dtype`` is float64).
 
     A tree with batched geometry leaves runs on per-problem subspaces
     (``PreparedProblem.S_all``), which only the kernel's instantiation for
@@ -193,8 +254,19 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
         return False, (f"{num_constraints} constraints exceed the kernel's "
                        f"cap of {MAX_CONSTRAINTS} (LOIK_MAX_CONSTRAINTS)")
     if not 1 <= batch_tile <= 1024:
-        return False, (f"batch_tile {batch_tile} is not a CUDA block size "
-                       "(1..1024 threads)")
+        return False, (f"batch_tile {batch_tile} is not a number of problems "
+                       "per block that a CUDA block size allows (1..1024)")
+    size_dtype = torch.float64 if dtype == torch.float64 else torch.float32
+    if problems_per_block(tree.nvs, num_constraints, size_dtype, batch_tile,
+                          tree.has_batched_geometry) < 1:
+        frame, block = frame_words(tree.nvs, num_constraints,
+                                   tree.has_batched_geometry)
+        size = torch.finfo(size_dtype).bits // 8
+        return False, (f"one problem of this tree ({tree.njoints} joints, "
+                       f"{tree.nv} dofs, {num_constraints} constraints) needs "
+                       f"{(frame + block) * size} bytes of shared memory in "
+                       f"{size_dtype}, more than the {MAX_SMEM_BYTES} a block "
+                       "has (LOIK_MAX_SMEM_BYTES)")
     return True, None
 
 
@@ -258,15 +330,28 @@ def _subspace_operand(tree, dtype) -> torch.Tensor:
 
 
 def _launch(tree, params: SolverParams, prob: PreparedProblem,
-            st: SolverState, batch_tile: int) -> SolverState:
-    """Launch the kernel on clones of the state; returns the final state."""
+            st: SolverState, batch_tile: int,
+            lib: Optional[ctypes.CDLL] = None) -> SolverState:
+    """Launch the kernel on clones of the state; returns the final state.
+
+    ``lib``: a host build of the kernel source bound with `_bind`, for a
+    rehearsal on CPU tensors (tools/rehearse_kernel.py); it runs in the call
+    and is not counted as a launch.  None: the CUDA library, on the current
+    stream of the tensors' device."""
     global LAUNCHES
     dtype, dev = st.vis.dtype, st.vis.device
     B = st.vis.shape[-1]
     N, NC = tree.njoints, len(prob.constraint_links)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the fused kernel takes float32 or float64, got {dtype}")
-    lib = _library()
+    tile = problems_per_block(tree.nvs, NC, dtype, batch_tile, prob.S_all is not None)
+    if tile < 1:
+        raise ValueError(
+            f"fused kernel: one problem of this tree does not fit a block's "
+            f"shared memory in {dtype} ({MAX_SMEM_BYTES} bytes)")
+    rehearsal = lib is not None
+    if not rehearsal:
+        lib = _library()
 
     def operand(name, x, want_dtype):
         if x.device != dev or x.dtype != want_dtype:
@@ -296,7 +381,7 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
         *[None if t is None else t.data_ptr() for t in tensors])
 
     cfg = _LoikConfig(
-        B=B, N=N, NC=NC, nv_max=tree.nv_max, threads=batch_tile,
+        B=B, N=N, NC=NC, nv_max=tree.nv_max, tile=tile,
         max_iter=params.max_iter,
         check_interval=params.check_interval,
         check_feasibility=int(params.check_feasibility),
@@ -311,13 +396,14 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     cfg.clinks[:NC] = prob.constraint_links
 
     fn = lib.loik_fused_admm_f32 if dtype == torch.float32 else lib.loik_fused_admm_f64
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = 0 if rehearsal else torch.cuda.current_stream(dev).cuda_stream
     err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(
             "fused ADMM kernel launch failed: "
             f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
-    LAUNCHES += 1
+    if not rehearsal:
+        LAUNCHES += 1
     return dataclasses.replace(st, **out)
 
 
@@ -326,8 +412,10 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
     """Run `_solve_loop` as the fused kernel (CUDA tensors) or as the eager
     loop itself (CPU tensors).  Takes/returns the same trailing-batch state.
 
-    batch_tile: threads per block (default `refine.default_batch_tile`).
-    The kernel masks a ragged last block, so B need not divide by it."""
+    batch_tile: the most problems per block (default
+    `refine.default_batch_tile`); `problems_per_block` lowers it to what the
+    block's threads and shared memory hold.  The kernel masks a ragged last
+    block, so B need not divide by it."""
     if params.logging:
         raise ValueError("fused path does not support logging")
     if params.verbose:

@@ -27,14 +27,18 @@ from .state import SolveResult, SolverState
 
 
 def default_batch_tile(njoints: int) -> int:
-    """Threads per block of the fused kernel.  One thread owns one problem,
-    so small blocks spread a batch over more of the 132 SMs: 64 threads give
-    talos' 4096 problems 64 blocks where 128 gave 32.  Measured on an H100
-    at 32, 64, 128 and 256 threads (chip_smoke.py prints the four times per
-    path), 64 is the fastest or within the spread on panda_arm, solo12 and
-    talos alike.  The per-thread working set lives in local memory, so the
-    count does not depend on njoints within the kernel's joint cap."""
-    return 64
+    """Problems per block of the fused kernel (8 lanes each).  A block's
+    problems share its shared memory and it ends with its slowest problem,
+    so a tall tree, whose frame is large and whose iterations are long,
+    wants few problems per block and an arm more.  Measured on an H100
+    (tools/flagship_kernel_time.py --batch-tile, PERF.md): panda_arm is
+    fastest at 16 (2 to 32 tried; 2 and 32 are 20-50% slower), solo12 at 8,
+    talos at 4 (1 to 12 tried, within 15%).  `kernels.fused.
+    problems_per_block` lowers the value to what a block's shared memory
+    holds (12 talos problems in float32, 4 in float64)."""
+    if njoints <= 8:
+        return 16
+    return 8 if njoints <= 16 else 4
 
 
 def _cast_state(st: SolverState, dtype) -> SolverState:

@@ -77,9 +77,11 @@ def _need_card():
 
 
 def test_wrapper_layout_matches_cuda_source():
-    """The pointer order, the caps and the config struct the wrapper packs
-    are the ones csrc/fused_admm.cu declares (the library also reports them
-    at first load; this catches a mismatch without a card)."""
+    """The pointer order, the caps, the lane count, the shared-memory limit
+    and the config struct the wrapper packs are the ones csrc/fused_admm.cu
+    declares, and `frame_words` adds up the fields `loik_layout` lays out
+    (the library also reports them at first load; this catches a mismatch
+    without a card)."""
     with open(CSRC) as f:
         src = f.read()
     enum = re.search(r"enum LoikPtr \{(.*?)\};", src, re.S).group(1)
@@ -96,6 +98,115 @@ def test_wrapper_layout_matches_cuda_source():
     struct = re.search(r"struct LoikConfig \{(.*?)\};", src, re.S).group(1)
     declared = re.findall(r"(\w+)(?:\[\w+\])*[,;]", struct)
     assert declared == [name for name, _ in fused._LoikConfig._fields_]
+    assert f"#define LOIK_LANES {fused.LANES}" in src
+    assert f"#define LOIK_NACC {fused._NACC}" in src
+    assert f"#define LOIK_MAX_SMEM_BYTES {fused.MAX_SMEM_BYTES}" in src
+    assert fused.MAX_SMEM_BYTES == 227 * 1024 and 32 % fused.LANES == 0
+    # the frame: every LOIK_FIELD(name, words) of loik_layout, evaluated here
+    layout = re.search(r"static LoikLayout loik_layout\(.*?\n\}", src, re.S).group(0)
+    fields = re.findall(r"LOIK_FIELD\((\w+), (.*?)\);", layout)
+    assert len(fields) == len(set(n for n, _ in fields)) == 34
+    scalars = re.search(r"enum LoikScalar \{(.*?)\}", src).group(1).split(",")
+    for nvs, NC, s_all in [((1,) * 7, 1, False), ((1,) * 7, 1, True),
+                           ((6,) + (1,) * 12, 5, False), ((6,) + (1,) * 32, 2, False),
+                           ((1,), 1, False), ((6, 3, 2), 8, False)]:
+        names = dict(N=len(nvs), NC=NC, nv=sum(nvs), nd=sum(k * k for k in nvs),
+                     LOIK_NACC=fused._NACC, LOIK_LANES=fused.LANES,
+                     SC_COUNT=len(scalars) - 1)
+        names["hw"] = max(names["N"] * 36, fused._NACC * fused.LANES)
+        total = 0
+        for _, words in fields:
+            m = re.fullmatch(r"s_all \? (.*) : (.*)", words)
+            total += eval(m.group(1 if s_all else 2) if m else words, {}, names)
+        frame, block = fused.frame_words(nvs, NC, s_all)
+        assert frame == total | 1, (nvs, NC, s_all)
+        assert block == (0 if s_all else len(nvs) * 6 * max(nvs))
+
+
+def _robot_nvs(name):
+    """(dofs per joint, constraints, per-problem S) of chip_smoke.py's paths."""
+    if name == "mixed":             # the padded chain of UR5 + panda_arm
+        return (1,) * 7, 1, True
+    tree = lt.robots.get(name, "float32", device="cpu")
+    return tree.nvs, {"panda_arm": 1, "solo12": 5, "talos": 2}[name], False
+
+
+# words of one problem's frame and of the block's S, counted by hand from
+# the field list in the docstring of csrc/fused_admm.cu::LoikLayout
+FRAME_WORDS = {
+    # H 252, U+UD^-1 84, D^-1 7, p+facc 84, r 7, transforms 147, vis/fis/fdpa/Hv
+    # 168, yis/Aty/Atb 18, A 36, b 6, dofs 49, Ha+D 72, sums 14+12, scalars 3
+    "panda_arm": (959, 42),
+    "mixed": (1001, 0),             # + S_all 42, no block copy of S
+    # 13 joints, 18 dofs, D^-1 36+12, 5 constraints
+    "solo12": (2089, 468),
+    # 33 joints, 38 dofs, D^-1 36+32, 2 constraints
+    "talos": (4193, 1188),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["panda_arm", "mixed", "solo12", "talos"])
+def test_shared_memory_bytes_per_problem(name, dtype):
+    nvs, NC, s_all = _robot_nvs(name)
+    frame, block = fused.frame_words(nvs, NC, s_all)
+    assert (frame, block) == FRAME_WORDS[name]
+    size = 4 if dtype == torch.float32 else 8
+    # sized by the tree, not by the caps: talos in float32 is under 17 KB
+    kib = {"panda_arm": 4, "mixed": 5, "solo12": 9, "talos": 17}[name]
+    assert frame * size <= kib * 1024 * (size // 4)
+    assert frame % 2 == 1           # an odd stride over the banks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["panda_arm", "mixed", "solo12", "talos"])
+@pytest.mark.parametrize("batch_tile", [1, 3, 8, 64, 1024])
+def test_problems_per_block_fit_the_block(name, dtype, batch_tile):
+    nvs, NC, s_all = _robot_nvs(name)
+    tile = fused.problems_per_block(nvs, NC, dtype, batch_tile, s_all)
+    frame, block = fused.frame_words(nvs, NC, s_all)
+    size = 4 if dtype == torch.float32 else 8
+    assert 1 <= tile <= batch_tile
+    assert tile * fused.LANES <= 1024
+    assert (block + tile * frame) * size <= 227 * 1024
+    # whole warps once more than a warp's worth of problems fits
+    assert tile <= 4 or tile % (32 // fused.LANES) == 0
+    # and no smaller than needed: one more warp of problems would not fit
+    if tile < min(batch_tile, 1024 // fused.LANES) - 3:
+        assert (block + (tile + 4) * frame) * size > 227 * 1024
+
+
+def test_eligibility_names_a_tree_whose_problem_does_not_fit(monkeypatch):
+    """No robot within the kernel's caps needs more than a block has, so the
+    limit is lowered to show the refusal: by name, before any launch."""
+    tree = lt.robots.talos("float32", device="cpu")
+    params = lt.SolverParams(**FLAGSHIP)
+    assert fused.fused_eligibility(tree, params, 8, 8, num_constraints=2) == (True, None)
+    monkeypatch.setattr(fused, "MAX_SMEM_BYTES", 16 * 1024)
+    ok, reason = fused.fused_eligibility(tree, params, 8, 8, num_constraints=2)
+    assert not ok and "shared memory" in reason and "33 joints" in reason
+    assert str((4193 + 1188) * 4) in reason
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.resolve_fused("require", tree, params, 8, 8, num_constraints=2)
+    small = lt.robots.panda_arm("float32", device="cpu")
+    assert fused.fused_eligibility(small, params, 8, 8)[0]
+
+
+@pytest.mark.parametrize("name", ["panda_arm", "solo12"])
+def test_rehearsed_kernel_equals_eager_loop(name):
+    """The CUDA source compiled for the host (tools/rehearse_kernel.py): the
+    lanes of a group phase by phase in both orders, a ragged block, a warm
+    tick and the delta-duals stages, bit for bit against the eager loop."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source for the host")
+    sys.path.insert(0, os.path.join(os.path.dirname(chip_smoke.__file__), "tools"))
+    import rehearse_kernel
+
+    lines = []
+    n = rehearse_kernel.rehearse((name,), B=8, tiles=(4, 3), log=lines.append)
+    assert n == len(lines) >= 17, lines
 
 
 @pytest.mark.cuda
@@ -257,6 +368,69 @@ def test_tracking_ticks_on_card_equal_eager_ticks():
         assert torch.equal(res.nu, got.nu[t]) and torch.equal(res.nu, want.nu[t])
         assert torch.equal(res.iterations, want.iterations[t])
     assert fused.LAUNCHES == n0 + 2 * T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,batch_tile", [(1, 8), (13, 8), (1000, 12), (37, 5), (37, 3)])
+@pytest.mark.parametrize("name", ["flagship", "solo12"])
+def test_ragged_batches_on_card(name, B, batch_tile):
+    """B = 1 and B not a multiple of the problems per block: the last block's
+    empty groups are masked, the rest get the eager loop's bits."""
+    _need_card()
+    tree, params, prob, st = prepared_path(name, B, 4, device="cuda")
+    tile = fused.problems_per_block(tree.nvs, len(prob.constraint_links),
+                                    torch.float32, batch_tile)
+    assert B == 1 or B % tile
+    ker = fused.fused_solve_loop(tree, params, prob, st, batch_tile=batch_tile)
+    torch.cuda.synchronize()
+    states_equal(ker, tsm._solve_loop(tree, prob, params, st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_groups_of_one_warp_leave_at_different_iterations_on_card(dtype):
+    """Four problems share a warp (8 lanes each) and stop at different
+    iterations, some of them at the cap: every group synchronises on its
+    own mask, and the results are the eager loop's."""
+    _need_card()
+    params = lt.SolverParams(**FLAGSHIP, check_interval=1)
+    tree, prob, st = prepared(params, B=64, dtype=dtype, device="cuda")
+    ker = fused.fused_solve_loop(tree, params, prob, st, batch_tile=4)
+    torch.cuda.synchronize()
+    states_equal(ker, tsm._solve_loop(tree, prob, params, st))
+    its = ker.iterations.reshape(16, 4)
+    assert (its.max(1).values > its.min(1).values).all()
+    assert int(ker.it) == int(ker.iterations.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship", "mixed", "solo12", "talos"])
+def test_library_reports_the_wrappers_frame_on_card(name):
+    _need_card()
+    import ctypes
+
+    nvs, NC, s_all = _robot_nvs("panda_arm" if name == "flagship" else name)
+    lib = fused._library()
+    cfg = fused._LoikConfig(B=1, N=len(nvs), NC=NC, nv_max=max(nvs), tile=1, check_interval=1)
+    cfg.nvs[:len(nvs)] = nvs
+    frame, block = ctypes.c_int(), ctypes.c_int()
+    assert lib.loik_fused_admm_frame(ctypes.byref(cfg), int(s_all), ctypes.byref(frame),
+                                     ctypes.byref(block)) == 0
+    assert (frame.value, block.value) == fused.frame_words(nvs, NC, s_all)
+
+
+@pytest.mark.cuda
+def test_launch_refused_for_shared_memory_raises_on_card(monkeypatch):
+    """More problems per block than the block's shared memory holds: CUDA
+    refuses, and the wrapper raises with CUDA's message."""
+    _need_card()
+    tree, params, prob, st = prepared_path("talos", 64, 1, device="cuda")
+    monkeypatch.setattr(fused, "problems_per_block", lambda *a, **k: 64)
+    with pytest.raises(RuntimeError, match="launch failed: .*cuda error"):
+        fused.fused_solve_loop(tree, params, prob, st)
+    monkeypatch.undo()
+    states_equal(fused.fused_solve_loop(tree, params, prob, st),
+                 tsm._solve_loop(tree, prob, params, st))
 
 
 @pytest.mark.cuda
