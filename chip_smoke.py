@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-Five main paths through the fused ADMM kernel
+Eight main paths through the fused ADMM kernel
 (`loik_tpu_torch/kernels/csrc/fused_admm.cu`).  Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
@@ -25,6 +25,22 @@ Two are the fleet paths:
     starts at tol 1e-4, check_interval 1, fleets of B = 16384 and B = 256,
     a target sweep of T = 100 ticks through `track_scan`: one launch per
     tick, each tick's state the input of the next.
+Three are the planner and position-level paths:
+  - multistart: bench.py's multistart configuration, `panda_arm` with the
+    flagship's task and settings, 7 batches of B = 16384 random seeds
+    (>= 1e5) from one seeded CUDA generator through
+    `parallel.solve_multistart` with the delta-duals `solve_fn` (stage-1 cap
+    32, fused="require"), top k = 8: two launches per batch;
+  - clik: `DiffIkSolver(panda_arm, ..., fused="require").reach`, B = 16384
+    from the neutral configuration to FK of neutral moved by 0.35 N(0, 1)
+    tangent steps, dt 0.1, 80 ticks, gain 2, float32 at tol 1e-4,
+    check_interval 1, max_iter 100: one launch per tick;
+  - two-stage: the flagship's inputs through
+    `solve_refined(method="two-stage", stage1_max_iter=32, stage2_max_iter=4)`
+    (bench.py's two-stage defaults): one launch (the float32 stage 1), then
+    the eager float64 stage 2; and `mobile_ur5` (a universal joint, so the
+    kernel cannot take it) at B = 4096 through `solve_refined()` with
+    fused=None, which takes the eager two-stage path silently.
 
 Phases (any failure raises, so the script exits nonzero):
   1. a CUDA device, and the card's name and power limit from nvidia-smi;
@@ -81,7 +97,27 @@ Phases (any failure raises, so the script exits nonzero):
      most 1e-3); ms per tick by CUDA events around the whole stream, the
      host's enqueue time, the synchronous p50 of `solve_tracking`, the
      kernel alone per tick, the device's idle share over one stream
-     (torch.profiler), and the bound.
+     (torch.profiler), and the bound;
+ 12. the multistart path: the launch count rises by 2 per batch; in every
+     batch the errors ascend, slots beyond num_converged are inf, and every
+     finite slot's float64 task residual recomputed from (q, nu) is at most
+     1e-5 and equals its error within 1e-5; on a 1024-seed prefix the
+     outcome budget against the eager path.  Seeds/s with every seed
+     counted (CUDA events, median of 5 batches after a warm-up) with the
+     kernel alone beside it, and the first batch's launches against the
+     eager loop on their inputs, timed, with the bound;
+ 13. the closed-loop IK path: exactly 80 launches and no host
+     synchronisation over the tick loop; the kernel path against the eager
+     path on every returned field after 10 ticks at B=1024 (1e-4
+     abs-or-rel, 0 expected) and after 80 ticks at B=64, with the reached
+     fraction no more than 1% below the eager path's; the final pos_err/rot_err
+     against a float64 FK of the returned q within 1e-5; the float32
+     pose-error floor; ms per tick, host enqueue per tick, kernel alone per
+     tick and the device's idle share over one run, and the bound;
+ 14. the two-stage path: one launch, the float64 certificate of every
+     converged problem, the converged fraction beside the delta path's,
+     stage 1, stage 2 and total times; then `mobile_ur5` with no launch, no
+     warning, certified the same way.
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -112,6 +148,12 @@ PATHS = {
 }
 # the tracking path: fleets, ticks, tolerance
 TRACKING = dict(fleets=(16384, 256), T=100, tol=1e-4, settle=5)
+# the planner paths (bench.py's multistart and two-stage defaults,
+# examples/07_position_ik.py's closed loop)
+MULTISTART = dict(B=16384, seeds=100_000, k=8, stage1_max_iter=32, prefix=1024)
+CLIK = dict(B=16384, steps=80, dt=0.1, gain=2.0, tol=1e-4, max_iter=100, spread=0.35,
+            prefix=1024, short=10, reached_prefix=64)
+TWO_STAGE = dict(stage1_max_iter=32, stage2_max_iter=4, mobile_B=4096)
 
 
 def log(msg: str) -> None:
@@ -251,7 +293,8 @@ def kernel_device_ms(torch, fn):
 def link_velocities(sm, bsp, tree, q, nu):
     """Local-frame spatial velocity of every link for joint velocities nu
     (B, nv): the kinematic recursion v_i = X_i^-1 v_parent + S_i nu_i from
-    FK.  Returns a list of (B, 6) tensors."""
+    FK, with S evaluated at q where it depends on it.  Returns a list of
+    (B, 6) tensors."""
     R, p = sm.fwd_pass_init(tree, q)                 # (N,3,3,B), (N,3,B)
     nu_t = nu.movedim(0, -1)                           # (nv, B)
     v = []
@@ -259,7 +302,8 @@ def link_velocities(sm, bsp, tree, q, nu):
         par = tree.parents[i]
         v_par = v[par] if par >= 0 else nu_t.new_zeros((6, nu_t.shape[-1]))
         iv, k = tree.idx_v[i], tree.nvs[i]
-        S = tree.joint_S(i)[:, :, None]                # (6, k, 1)
+        S = tree.joint_S(i, q)                         # (6, k) or (B, 6, k)
+        S = S.movedim(0, -1) if S.ndim == 3 else S[:, :, None]
         v.append(bsp.act_inv_motion(R[i], p[i], v_par) + bsp.mv(S, nu_t[iv:iv + k]))
     return [x.movedim(-1, 0) for x in v]
 
@@ -893,7 +937,8 @@ def tracking_path(mods, phase):
             call_ms.append(start.elapsed_time(end))
             nb, op = loop_bound(fused_mod, tree_, params_, prob_, st_, out)
             nbytes, ops = nbytes + nb, ops + op
-        rep = stage_report(mods, [captured[0], captured[T // 2], captured[-1]], what="tick")
+        rep = stage_report(mods, [captured[0], captured[T // 2], captured[-1]], eager_reps=1,
+                           what="tick")
         b_ms, b_by = bound_ms(nbytes / T, ops / T)
         log(f"    per tick: fused_solve_loop mean {statistics.mean(call_ms):.4f} ms over the "
             f"{T} ticks (min {min(call_ms):.4f}, max {max(call_ms):.4f}), eager loop "
@@ -907,6 +952,290 @@ def tracking_path(mods, phase):
             "kernel_alone_ms": alone, "stream_ms_per_tick": tick_ms,
         })
     return entries
+
+
+def multistart_path(mods, phase):
+    """Phase 12: multistart over >= 1e5 seeds with the delta-duals solve_fn."""
+    torch, lt, fused_mod, sm, rf, bsp = mods
+    B, k = MULTISTART["B"], MULTISTART["k"]
+    n_batches = -(-MULTISTART["seeds"] // B)
+    dev = torch.device("cuda")
+    tree, links, problem, params, _ = config(lt, torch, "flagship", torch.float32, dev, B,
+                                             PATHS["flagship"]["K"])
+
+    def delta(fused):
+        return lambda t, p, q, pr: rf.solve_delta_duals(
+            t, p, q, pr, stage1_max_iter=MULTISTART["stage1_max_iter"], fused=fused)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches, launches, captured = capture_launches(mods, lambda: [
+        lt.parallel.solve_multistart(tree, params, problem, gen, B, solve_fn=delta("require"),
+                                     k=k) for _ in range(n_batches)])
+    n_conv = [int(r.num_converged) for r in batches]
+    log(f"[{phase}] multistart {n_batches} x {B} seeds (panda_arm, check_interval "
+        f"{params.check_interval}, top {k}): kernel launches {launches}, converged seeds per "
+        f"batch {n_conv} (fraction {sum(n_conv) / (n_batches * B):.4f})")
+    if launches != 2 * n_batches or len(captured) != 2 * n_batches:
+        raise AssertionError(f"expected {2 * n_batches} kernel launches, got {launches}")
+
+    # every batch: ranked, inf past num_converged, each finite slot's float64
+    # task residual recomputed from (q, nu)
+    worst = worst_gap = 0.0
+    tree64 = tree.astype(torch.float64)
+    for r, nc in zip(batches, n_conv):
+        err = r.error.double()
+        fin = torch.isfinite(err)
+        if int(fin.sum()) != min(k, nc) or not bool((err[1:] >= err[:-1]).all()):
+            raise AssertionError("multistart: slots not ranked or not inf past num_converged")
+        v = link_velocities(sm, bsp, tree64, r.q.double()[fin], r.nu.double()[fin])
+        task = (v[links[0]] @ problem.A[0].double().T - problem.b[0].double()).abs().amax(-1)
+        worst = max(worst, float(task.max()))
+        worst_gap = max(worst_gap, float((task - err[fin]).abs().max()))
+    log(f"    finite slots: f64 task residual max {worst:.3e}, |residual - error| max "
+        f"{worst_gap:.3e}; best error of the last batch {float(batches[-1].error[0]):.3e}")
+    if not (worst <= 1e-5 and worst_gap <= 1e-5):
+        raise AssertionError("multistart: a ranked seed misses its task")
+
+    # the first batch's seeds again: a prefix, kernel against eager
+    n = MULTISTART["prefix"]
+    qs = tree.random_configuration((B,), generator=torch.Generator(device=dev).manual_seed(0))[:n]
+    res_k = lt.parallel.multistart_from_configs(tree, params, problem, qs, k, delta("require"))
+    res_e = lt.parallel.multistart_from_configs(tree, params, problem, qs, k, delta(False))
+    outcome_budget(res_k.result, res_e.result, n, f"eager ({n}-seed prefix)")
+    if not torch.equal(res_k.result.nu, batches[0].result.nu[:n]):
+        raise AssertionError("multistart: the prefix's solutions differ from the batch's")
+
+    ms = cuda_median_ms(torch, lambda: lt.parallel.solve_multistart(
+        tree, params, problem, gen, B, solve_fn=delta("require"), k=k))
+    alone = kernel_device_ms(torch, lambda: lt.parallel.solve_multistart(
+        tree, params, problem, gen, B, solve_fn=delta("require"), k=k))
+    log(f"    {ms:.3f} ms per batch of {B} (CUDA events, median of 5): "
+        f"{B / ms * 1e3:.0f} seeds/s, every seed counted; kernel alone "
+        f"{'not measured' if alone is None else f'{alone:.3f} ms'} per batch")
+    rep = stage_report(mods, captured[:2])
+    entry = kernels_entry("multistart", launches, rep)
+    entry["seeds_per_s"] = B / ms * 1e3
+    return entry
+
+
+def clik_inputs(lt, torch, B):
+    """(tree, q0, target R, target p, link): float32 panda_arm from its
+    neutral configuration to FK of neutral moved by CLIK["spread"] N(0, 1)
+    tangent steps, seeded on the card (examples/07_position_ik.py's task)."""
+    dev = torch.device("cuda")
+    tree = lt.robots.panda_arm("float32", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dq = CLIK["spread"] * torch.randn((B, tree.nv), generator=gen, dtype=torch.float32,
+                                      device=dev)
+    q0 = tree.neutral().expand(B, tree.nq).contiguous()
+    ee = tree.njoints - 1
+    _, _, oR, op = tree.fwd_kinematics(tree.integrate(q0, dq))
+    return tree, q0, oR[:, ee].contiguous(), op[:, ee].contiguous(), ee
+
+
+def clik_path(mods, phase):
+    """Phase 13: closed-loop position IK through `DiffIkSolver.reach`."""
+    torch, lt, fused_mod, sm, _, _ = mods
+    from torch.profiler import ProfilerActivity, profile
+
+    B, T = CLIK["B"], CLIK["steps"]
+    tree, q0, tR, tp, ee = clik_inputs(lt, torch, B)
+    params = lt.SolverParams(max_iter=CLIK["max_iter"], tol_abs=CLIK["tol"],
+                             tol_rel=CLIK["tol"], check_interval=1)
+    run = dict(dt=CLIK["dt"], gain=CLIK["gain"])
+    solver = lt.DiffIkSolver(tree, params, (ee,), fused="require")
+    eager = lt.DiffIkSolver(tree, params, (ee,), fused=False)
+    launch = fused_mod.fused_solve_loop
+
+    # the main path: launches and host synchronisations over the tick loop
+    solver.reach(q0[:8], tR[:8], tp[:8], steps=2, **run)      # the build, off the count
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed():
+        start.record()
+        t0 = time.perf_counter()
+        out = solver.reach(q0, tR, tp, steps=T, **run)
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        return out, host
+
+    fused_mod.LAUNCHES = 0
+    (res, host_ms), syncs = count_syncs(torch, timed)
+    end.synchronize()
+    launches = fused_mod.LAUNCHES
+    tick_ms = start.elapsed_time(end) / T
+    log(f"[{phase}] clik reach B={B} T={T} tol {CLIK['tol']:g} (panda_arm, dt {run['dt']}, "
+        f"gain {run['gain']}): {launches} launches, host synchronisations {len(syncs)}, "
+        f"{tick_ms:.4f} ms per tick (CUDA events around the run), host enqueue "
+        f"{host_ms / T:.4f} ms per tick")
+    if launches != T:
+        raise AssertionError(f"expected {T} launches, got {launches}")
+    if syncs:
+        raise AssertionError("the tick loop synchronises the host: " + "; ".join(syncs[:5]))
+
+    # what came out: pose errors against a float64 FK of the returned q
+    tree64 = tree.astype(torch.float64)
+    _, _, oR, op = tree64.fwd_kinematics(res.q.double())
+    Ri, pi = lt.spatial.se3_inverse(oR[:, ee], op[:, ee])
+    e64 = lt.spatial.se3_log(*lt.spatial.se3_compose(Ri, pi, tR.double(), tp.double()))
+    gap = max(float((res.pos_err.double() - e64[:, :3].norm(dim=-1)).abs().max()),
+              float((res.rot_err.double() - e64[:, 3:].norm(dim=-1)).abs().max()))
+    qs = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=res.pos_err.device)
+    pq = [f"{x:.2e}" for x in torch.quantile(res.pos_err.double(), qs).tolist()]
+    rq = [f"{x:.2e}" for x in torch.quantile(res.rot_err.double(), qs).tolist()]
+    hist = res.err_history.amax(-1)
+    log(f"    reached {float(res.reached.double().mean()):.4f} (pos_tol 1e-4, rot_tol 1e-3); "
+        f"float32 pose-error floor: pos_err p50/p90/p99/max {'/'.join(pq)} m, rot_err "
+        f"{'/'.join(rq)} rad; batch max |err| per tick "
+        + " -> ".join(f"{float(hist[t]):.1e}" for t in (0, T // 8, T // 4, T // 2, T - 1))
+        + f"; last tick converged {float(res.converged.double().mean()):.4f}, mean "
+        f"iterations {float(res.iterations.double().mean()):.2f}; |pos/rot err - float64 FK| "
+        f"max {gap:.3e}")
+    if gap > 1e-5 or not bool(torch.isfinite(res.q).all()):
+        raise AssertionError("clik: the reported pose error disagrees with a float64 FK")
+
+    # the kernel path against the eager path on a prefix: every field after
+    # 10 ticks (B=1024), and the reached fraction after all T (B=64: every
+    # eager tick with a problem at the iteration cap costs about a second)
+    for steps, n in ((CLIK["short"], CLIK["prefix"]), (T, CLIK["reached_prefix"])):
+        got = solver.reach(q0[:n], tR[:n], tp[:n], steps=steps, **run)
+        want = eager.reach(q0[:n], tR[:n], tp[:n], steps=steps, **run)
+        errs = state_errors(torch, ("q", "nu", "err_history", "pos_err", "rot_err", "reached",
+                                    "converged", "iterations"), got, want)
+        errs.update(state_errors(torch, fused_mod._STATE_FIELDS, got.state, want.state))
+        worst = max(rel for _, rel in errs.values())
+        r_k, r_e = float(got.reached.double().mean()), float(want.reached.double().mean())
+        log(f"    B={n} T={steps}: kernel against eager, worst abs-or-rel {worst:.3e}; reached "
+            f"{r_k:.4f} (eager {r_e:.4f})")
+        if worst > 1e-4 or r_k < r_e - 0.01:
+            raise AssertionError(f"clik: kernel path against eager path after {steps} ticks")
+
+    # one run on the profiler: the kernel alone per tick, the device's idle share
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.reach(q0, tR, tp, steps=T, **run)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    ker_us = sum(getattr(e, "self_device_time_total", 0) for e in events
+                 if "fused_admm_kernel" in e.key)
+    alone = ker_us / 1e3 / T if ker_us else None
+    if dev_us:
+        log(f"    profiler over one run: wall {wall:.3f} ms, device busy {dev_us / 1e3:.3f} ms, "
+            f"idle share {1 - dev_us / 1e3 / wall:.4f}, kernel alone {alone:.4f} ms per tick")
+    else:
+        log("    profiler saw no device time: kernel alone and idle share not measured")
+
+    # every launch of one run again, timed, with its bound; kernel against
+    # plain version on the last tick
+    _, _, captured = capture_launches(mods, lambda: solver.reach(q0, tR, tp, steps=T, **run))
+    nbytes = ops = 0
+    call_ms = []
+    for tree_, params_, prob_, st_, bt in captured:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = launch(tree_, params_, prob_, st_, bt)
+        end.record()
+        end.synchronize()
+        call_ms.append(start.elapsed_time(end))
+        nb, op_ = loop_bound(fused_mod, tree_, params_, prob_, st_, out)
+        nbytes, ops = nbytes + nb, ops + op_
+    rep = stage_report(mods, [captured[-1]], eager_reps=1, what="last tick")
+    b_ms, b_by = bound_ms(nbytes / T, ops / T)
+    log(f"    per tick: fused_solve_loop mean {statistics.mean(call_ms):.4f} ms (min "
+        f"{min(call_ms):.4f}, max {max(call_ms):.4f}), eager loop {rep['plain_ms']:.3f} ms "
+        f"(the last tick); bound {b_ms:.5f} ms per tick by {b_by}")
+    return {
+        "name": "fused_admm/clik", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        "launches": launches, "max_abs_err": rep["err"], "ms": statistics.mean(call_ms),
+        "plain_ms": rep["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "kernel_alone_ms": alone, "run_ms_per_tick": tick_ms,
+    }
+
+
+class StageSplit:
+    """Synced host-clock time of each `_solve_impl` call of a refinement, in
+    call order (stage 1, stage 2)."""
+
+    def __init__(self, torch, rf):
+        self.torch, self.rf, self.ms = torch, rf, []
+
+    def __enter__(self):
+        self.fn = self.rf._solve_impl
+
+        def wrapper(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.rf._solve_impl = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.rf._solve_impl = self.fn
+
+
+def two_stage_path(mods, phase):
+    """Phase 14: the two-stage solve on the flagship's inputs (one launch),
+    then on mobile_ur5 (no launch: q-dependent subspaces)."""
+    import warnings
+
+    torch, lt, fused_mod, sm, rf, _ = mods
+    B, K = PATHS["flagship"]["B"], PATHS["flagship"]["K"]
+    dev = torch.device("cuda")
+    tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B, K)
+    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    kw = dict(method="two-stage", stage1_max_iter=TWO_STAGE["stage1_max_iter"],
+              stage2_max_iter=TWO_STAGE["stage2_max_iter"])
+    res, launches, captured = capture_launches(mods, lambda: solver.solve_refined(q, **kw))
+    log(f"[{phase}] two-stage main path B={B} check_interval={K} (panda_arm, stage 1 cap "
+        f"{kw['stage1_max_iter']}, stage 2 cap {kw['stage2_max_iter']}): kernel launches "
+        f"{launches}, nu {res.nu.dtype}")
+    if launches != 1 or len(captured) != 1:
+        raise AssertionError(f"expected 1 kernel launch, got {launches}")
+    certify(mods, tree, problem, links, q, res)
+    delta = solver.solve_refined(q, method="delta")
+    ms = cuda_median_ms(torch, lambda: solver.solve_refined(q, **kw))
+    ms_delta = cuda_median_ms(torch, lambda: solver.solve_refined(q, method="delta"))
+    with StageSplit(torch, rf) as split:
+        solver.solve_refined(q, **kw)
+    log(f"    converged {float(res.converged.double().mean()):.4f} (delta path "
+        f"{float(delta.converged.double().mean()):.4f}); solve_refined {ms:.3f} ms (delta "
+        f"path {ms_delta:.3f} ms), CUDA events, median of 5; synced split: stage 1 (FK, "
+        f"prepare, kernel) {split.ms[0]:.3f} ms, stage 2 (float64 eager loop) "
+        f"{split.ms[1]:.3f} ms")
+    rep = stage_report(mods, captured)
+
+    # a tree the kernel cannot take: the eager two-stage path, silently
+    Bm = TWO_STAGE["mobile_B"]
+    mtree = lt.robots.mobile_ur5("float32", device=dev)
+    mlinks = (mtree.joint_names.index("wrist_3_joint"),)
+    mproblem = lt.make_problem(
+        mtree, mlinks, b=torch.tensor([[0.0, 0.0, 0.2, 0.0, 0.0, 0.0]]),
+        lb=-4.0 * torch.ones(mtree.nv), ub=4.0 * torch.ones(mtree.nv))
+    mq = mtree.random_configuration((Bm,), generator=torch.Generator(device=dev).manual_seed(0))
+    msolver = lt.DiffIkSolver(mtree, params, mlinks, problem=mproblem)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mres, mlaunches, _ = capture_launches(mods, lambda: msolver.solve_refined(mq))
+    noisy = [str(w.message) for w in caught if "fused" in str(w.message)]
+    t0 = time.perf_counter()
+    msolver.solve_refined(mq)
+    torch.cuda.synchronize()
+    m_ms = (time.perf_counter() - t0) * 1e3
+    log(f"    mobile_ur5 B={Bm} ({mtree.njoints} joints, {mtree.nv} dof, q-dependent S): "
+        f"solve_refined() took the two-stage path with {mlaunches} launches and "
+        f"{len(noisy)} kernel warnings, {m_ms:.1f} ms (host clock, synced)")
+    if mlaunches or noisy:
+        raise AssertionError(f"mobile_ur5: {mlaunches} launches, warnings {noisy}")
+    certify(mods, mtree, mproblem, mlinks, mq, mres, label="mobile_ur5: ")
+    return kernels_entry("two_stage", launches, rep)
 
 
 def frame_report(mods):
@@ -947,6 +1276,9 @@ def main() -> None:
     mods = (torch, lt, fused_mod, sm, rf, bsp)
     t_start = time.time()
 
+    def clock():
+        log(f"    -- {time.time() - t_start:.1f} s since the start")
+
     # ---- 1. the card ----------------------------------------------------
     card = card_line()
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}, "
@@ -965,14 +1297,17 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    " + line.strip())
     frame_report(mods)
+    clock()
 
     # ---- 3, 4. the flagship's instantiation vs the eager loop ------------
     for K in (1, 8):
         double_check(mods, 3, "flagship", 1024, K)
     float_lockstep(mods, 4, "flagship", PATHS["flagship"]["B"])
+    clock()
 
     # ---- 5. the flagship main path ---------------------------------------
     kernels = [main_path(mods, "flagship", 5)]
+    clock()
 
     # ---- 6. multi-dof joints and tall trees vs the eager loop ------------
     double_check(mods, 6, "solo12", 1024, 1)
@@ -980,17 +1315,28 @@ def main() -> None:
     double_check(mods, 6, "talos", 256, 1)
     float_lockstep(mods, 6, "solo12", PATHS["solo12"]["B"])
     float_lockstep(mods, 6, "talos", PATHS["talos"]["B"])
+    clock()
 
     # ---- 7, 8. the legged robots' main paths -----------------------------
     kernels.append(main_path(mods, "solo12", 7))
     kernels.append(main_path(mods, "talos", 8))
+    clock()
 
     # ---- 9, 10. per-problem subspaces and the mixed super-batch ----------
     subspaces_check(mods, 9)
     kernels.append(mixed_path(mods, 10))
+    clock()
 
     # ---- 11. warm-started tracking ---------------------------------------
     kernels += tracking_path(mods, 11)
+    clock()
+
+    # ---- 12-14. the planner and position-level paths --------------------
+    kernels.append(multistart_path(mods, 12))
+    clock()
+    kernels.append(clik_path(mods, 13))
+    clock()
+    kernels.append(two_stage_path(mods, 14))
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

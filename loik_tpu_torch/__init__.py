@@ -16,7 +16,8 @@ from .model import KinematicTree, builders, load_urdf, make_tree, robots
 from .params import MuUpdateStrat, SolverParams
 from .problem import IkProblem, make_problem
 from .solver import solve
-from .solver.refine import solve_delta_duals
+from .solver.clik import ClikResult, solve_clik
+from .solver.refine import solve_delta_duals, solve_delta_refined, solve_two_stage
 from .solver.state import SolveResult, SolverState
 from .solver.stream import StreamResult, solve_stream
 

@@ -3,12 +3,11 @@
 Port of `loik_tpu.api.DiffIkSolver`, the role of
 `FirstOrderLoikOptimizedTpl` (loik-loid-optimized.hpp:22): construct once
 per (model, params, constraint topology), then call `solve`, the
-tight-tolerance `solve_refined`, the split `solve_init` / `resolve` pair, or
+tight-tolerance `solve_refined`, the split `solve_init` / `resolve` pair,
 the tailored per-tick `solve_tracking` that updates a single constraint —
 the 1 kHz control-loop path (`Solve(q, c_id, Ai, bi)`,
-loik-loid-optimized.hpp:596-695) — and its staged form `track_scan`.  All
-methods are batched.  `reach` (closed-loop position IK) waits for
-`solve_clik` (ROADMAP queue 1 item 11).
+loik-loid-optimized.hpp:596-695) — its staged form `track_scan`, or `reach`,
+closed-loop position IK built on that tick.  All methods are batched.
 """
 
 from __future__ import annotations
@@ -20,7 +19,8 @@ import torch
 from .params import SolverParams
 from .problem import IkProblem, make_problem
 from .solver import solve
-from .solver.refine import default_batch_tile, solve_delta_duals
+from .solver.clik import ClikResult, solve_clik
+from .solver.refine import default_batch_tile, solve_delta_duals, solve_two_stage
 from .solver.solve import _as_batch, _solve_impl, fwd_pass_init, solve_from_fk
 from .solver.state import SolveResult, SolverState
 from .solver.stream import StreamResult, solve_stream
@@ -31,10 +31,11 @@ class DiffIkSolver:
                  constraint_links: Sequence[int],
                  problem: Optional[IkProblem] = None,
                  fused=None):
-        """fused: kernel policy for `solve_refined`, `solve_tracking` and
-        `track_scan` — None (auto: fuse when eligible, warn once naming the
-        blocker otherwise), True/False to force, or "require" to raise when
-        the fused kernel cannot run (`kernels.fused.resolve_fused`)."""
+        """fused: kernel policy for `solve_refined`, `solve_tracking`,
+        `track_scan` and `reach` — None (auto: fuse when eligible, warn once
+        naming the blocker otherwise), True/False to force, or "require" to
+        raise when the fused kernel cannot run
+        (`kernels.fused.resolve_fused`)."""
         if fused not in (None, True, False, "require"):
             raise ValueError(
                 f"fused must be None, True, False, or 'require'; got {fused!r}"
@@ -100,21 +101,34 @@ class DiffIkSolver:
 
     def solve_refined(self, q, problem: Optional[IkProblem] = None,
                       method: str = "delta", **refine_kw) -> SolveResult:
-        """Tight-tolerance solve below the ~1e-5 f32 floor: the float32
-        delta-duals correction with one float64 KKT evaluation
-        (`solver.refine.solve_delta_duals`); on the GPU both float32 stages
-        run the fused kernel under this solver's ``fused`` policy.  Keyword
-        args forward to `solve_delta_duals`.  method="two-stage" is not
-        ported yet (ROADMAP queue 1 item 12)."""
-        if method != "delta":
+        """Tight-tolerance solve below the ~1e-5 float32 floor.
+
+        method="delta" (default): the float32 delta-duals correction with
+        one float64 KKT evaluation (`solver.refine.solve_delta_duals`); on
+        the GPU both float32 stages run the fused kernel.  method=
+        "two-stage": float32 bulk + warm float64 tail
+        (`solve_two_stage`), whose float32 stage runs the kernel where the
+        tree allows it; a tree with configuration-dependent subspaces
+        (universal, spherical-ZYX, mimic-pair joints) takes it for "delta"
+        too, as in loik_tpu.  The solver's ``fused`` policy applies to the
+        float32 stages: for two-stage None stays None (the kernel where
+        eligible, silently), False stays False, True and "require" require
+        the kernel.  Keyword args forward to the chosen backend."""
+        if method not in ("delta", "two-stage"):
             raise ValueError(
-                f"method {method!r} is not ported yet; loik_tpu_torch has "
-                "method='delta' (ROADMAP queue 1 item 12 has 'two-stage')"
-            )
+                f"method must be 'delta' or 'two-stage'; got {method!r}")
         if problem is not None:
             self.problem = problem
-        refine_kw.setdefault("fused", self.fused)
-        res = solve_delta_duals(
+        if method == "delta" and self.tree.has_q_dependent_S:
+            method = "two-stage"
+        if method == "delta":
+            refine_kw.setdefault("fused", self.fused)
+            backend = solve_delta_duals
+        else:
+            refine_kw.setdefault(
+                "fused_stage1", None if self.fused is None else bool(self.fused))
+            backend = solve_two_stage
+        res = backend(
             self.tree, self.params, q, self.problem,
             warm_state=self._state if self.params.warm_start else None,
             **refine_kw,
@@ -215,6 +229,25 @@ class DiffIkSolver:
         self.problem = self.problem.update_constraint(
             slot, A=None if A_seq is None else A_seq[-1], b=b_seq[-1])
         return stream
+
+    def reach(self, q0, target_R, target_p, link: Optional[int] = None,
+              **kw) -> ClikResult:
+        """Closed-loop position IK to target SE(3) poses (`solve_clik`): the
+        tailored tick (loik-loid-optimized.hpp:596-695) wrapped in the FK ->
+        pose error -> solve -> integrate loop.  Uses this solver's problem
+        (weights, bounds) with its constraint at ``link`` retargeted every
+        tick, and its ``fused`` policy; keyword args (dt, steps, gain,
+        max_task_velocity, ...) pass through to `solve_clik`.  Does NOT
+        thread the solver's warm state: the loop keeps its own per-tick warm
+        starts and self-heal."""
+        link = self.constraint_links[self._slot(link)]
+        if self.constraint_links != (link,):
+            raise ValueError(
+                "reach() needs this solver to have exactly one constraint "
+                f"at link {link}; got links {self.constraint_links}"
+            )
+        return solve_clik(self.tree, self.params, q0, target_R, target_p,
+                          link, problem=self.problem, fused=self.fused, **kw)
 
     # ------------------------------------------------------------------ #
     # getter parity (task-solver-base.hpp:87-141)

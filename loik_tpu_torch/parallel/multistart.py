@@ -1,0 +1,95 @@
+"""Multi-start global IK: BASELINE.json configs[4], "100k random seeds
+feeding sampling-based motion planning".
+
+Port of `loik_tpu.parallel.multistart`.  Differential IK is local; global IK
+restarts it from many random configurations and keeps the best converged
+solutions.  One diff-IK solve per seed scores how well the commanded
+end-effector velocity can be realized from that configuration; downstream
+planners integrate `q + dt nu`.  The port runs on one device: loik_tpu's
+`mesh` argument (the seed axis sharded over devices) waits for the
+multi-device port (ROADMAP queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..params import SolverParams
+from ..problem import IkProblem
+from ..solver.solve import solve
+
+
+def task_error(res, problem: IkProblem) -> torch.Tensor:
+    """Pure task-constraint violation per problem, max_c ||A_c v_c - b_c||_inf
+    at the solution, in the wider of the result's and the problem's dtypes
+    (unlike `primal_residual`, which also folds in the box slack block).
+    A and b may be shared (NC, 6, 6) / (NC, 6) or per problem with a
+    leading batch axis; each problem is scored on its own A."""
+    vis = res.vis                                                   # (B, N, 6)
+    v_c = torch.stack([vis[:, c] for c in problem.constraint_links], dim=1)
+    dtype = torch.promote_types(vis.dtype, problem.A.dtype)
+    A = problem.A.to(dtype)
+    b = problem.b.to(dtype)
+    r = (A @ v_c.to(dtype)[..., None])[..., 0] - b                 # (B, NC, 6)
+    return r.abs().amax(dim=(1, 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultistartResult:
+    """Ranked multi-start outcome (best seed first).
+
+    ``error[i] == inf`` marks a slot NOT backed by a converged seed: either
+    fewer than k seeds converged, or none did.  Check ``num_converged``
+    (host-side: ``found``) before consuming ``q``/``nu``; with no winner
+    they are arbitrary seed data."""
+
+    q: torch.Tensor              # (k, nq) ranked seed configurations
+    nu: torch.Tensor             # (k, nv) their solutions
+    error: torch.Tensor          # (k,) task errors; inf = slot not converged
+    num_converged: torch.Tensor  # () int32, converged seeds of the batch
+    result: object               # the per-seed SolveResult
+
+    @property
+    def found(self) -> bool:
+        """Host-side check (reads the device): did ANY seed converge?"""
+        return bool(self.num_converged > 0)
+
+
+def multistart_from_configs(tree, params: SolverParams, problem: IkProblem,
+                            qs: torch.Tensor, k: int = 1,
+                            solve_fn=None) -> MultistartResult:
+    """Solve from the seed configurations ``qs`` (S, nq) and rank them:
+    task error per converged seed, inf for the rest, the k smallest first
+    (`torch.topk`).  Nothing is read back to the host."""
+    if not 1 <= k <= qs.shape[0]:
+        raise ValueError(f"k must be in [1, num_seeds]; got k={k}")
+    res = (solve_fn or solve)(tree, params, qs, problem)
+    err = torch.where(res.converged, task_error(res, problem), float("inf"))
+    neg_top, idx = torch.topk(-err, k)
+    return MultistartResult(
+        q=qs[idx], nu=res.nu[idx], error=-neg_top,
+        num_converged=res.converged.sum(dtype=torch.int32), result=res,
+    )
+
+
+def solve_multistart(tree, params: SolverParams, problem: IkProblem,
+                     generator, num_seeds: int, solve_fn=None,
+                     k: int = 1) -> MultistartResult:
+    """Solve from ``num_seeds`` random configurations drawn from
+    ``generator`` (a `torch.Generator` on the tree's device, or None for
+    torch's default one) by `tree.random_configuration`; return the k best.
+
+    solve_fn(tree, params, qs, problem) replaces the solver (e.g. the
+    delta-duals refinement for tol-1e-6 scoring, which runs the fused
+    kernel on the GPU); the default is the batched `solve`.  A restart loop
+    calls this once per batch of seeds with the same generator.
+
+    Ranking considers ONLY converged seeds: slots beyond ``num_converged``
+    carry ``error == inf`` and arbitrary q/nu; when no seed converges,
+    ``found`` is False and the caller should resample."""
+    if not 1 <= k <= num_seeds:
+        raise ValueError(f"k must be in [1, num_seeds]; got k={k}")
+    qs = tree.random_configuration((int(num_seeds),), generator=generator)
+    return multistart_from_configs(tree, params, problem, qs, k, solve_fn)

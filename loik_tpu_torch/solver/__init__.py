@@ -1,4 +1,5 @@
-from .refine import solve_delta_duals
+from .clik import ClikResult, solve_clik
+from .refine import solve_delta_duals, solve_delta_refined, solve_two_stage
 from .solve import fwd_pass_init, prepare_problem, solve, solve_from_fk
 from .state import PreparedProblem, SolverState, SolveResult, init_state
 from .stream import StreamResult, solve_stream
@@ -6,6 +7,10 @@ from .stream import StreamResult, solve_stream
 __all__ = [
     "solve",
     "solve_delta_duals",
+    "solve_delta_refined",
+    "solve_two_stage",
+    "solve_clik",
+    "ClikResult",
     "solve_from_fk",
     "solve_stream",
     "StreamResult",

@@ -1,13 +1,23 @@
-"""Tight-tolerance solve below the float32 floor: the delta-duals refinement.
+"""Tight-tolerance solves below the float32 floor.
 
-Port of `loik_tpu.solver.refine.solve_delta_duals`.  Single precision cannot
-certify tol 1e-6 on this problem class: the augmented-Lagrangian penalty
-mu_eq amplifies the Riccati operands to ||H|| ~ 1e2, so float32 iterates
-stall at ~eps_f32 * ||H|| ~ 1e-5.  The delta-duals scheme runs a float32
-stage 1 at a tolerance above that floor, evaluates the KKT residual ONCE in
-float64, and runs the SAME float32 solver on the shifted (delta) problem,
-whose in-loop quantities are O(stage-1 error).  Both float32 stages run the
-fused kernel on the GPU.
+Port of `loik_tpu.solver.refine`.  Single precision cannot certify tol 1e-6
+on this problem class: the augmented-Lagrangian penalty mu_eq amplifies the
+Riccati operands to ||H|| ~ 1e2, so float32 iterates stall at
+~eps_f32 * ||H|| ~ 1e-5.  Three ways past that floor, each starting with a
+float32 stage 1 at a tolerance above it:
+
+  - `solve_delta_duals` (the flagship): one float64 KKT evaluation, then
+    the SAME float32 solver on the shifted (delta) problem, whose in-loop
+    quantities are O(stage-1 error).  Both float32 stages run the fused
+    kernel on the GPU.  Constant motion subspaces only.
+  - `solve_two_stage`: the float32 stage 1 (the fused kernel on the GPU
+    where the tree allows it), then a short warm float64 stage 2 in the
+    eager loop.  The tight-tolerance path of every tree, including those
+    with configuration-dependent subspaces (universal, spherical-ZYX and
+    mimic-pair joints).
+  - `solve_delta_refined`: the delta problem in primal form with the
+    stage-1 duals kept, both float32 stages in the eager loop (as in
+    loik_tpu, where it calls the plain solve).
 """
 
 from __future__ import annotations
@@ -236,4 +246,176 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
         primal_residual=st2.primal_residual,
         dual_residual=st2.dual_residual,
         state=st_full,
+    )
+
+
+def solve_two_stage(
+    tree,
+    params: SolverParams,
+    q,
+    problem: IkProblem,
+    stage1_tol: float = 2e-5,
+    stage1_max_iter: int = 48,
+    stage2_max_iter: Optional[int] = None,
+    stage2_mu: float = 1e-3,
+    stage2_mu_eq_scale: float = 1e6,
+    warm_state: Optional[SolverState] = None,
+    fused_stage1: Optional[bool] = None,
+    batch_tile: Optional[int] = None,
+) -> SolveResult:
+    """Solve at params.tol_abs/tol_rel with a float32 bulk and a warm
+    float64 tail.  ``tree``/``q``/``problem`` may be float32 or float64; the
+    outputs are float64.
+
+    Stage 1 runs float32 at ``stage1_tol`` (capped at ``stage1_max_iter``:
+    past a few times the typical count the stragglers are problems stage 2
+    refines or re-certifies anyway).  Stage 2 continues EVERY problem in
+    float64 from the float32 state, with its own penalties: near-optimal
+    warm duals let a large mu_eq close the task residual in 1-3 iterations
+    while a small mu_ineq keeps the box duals stable.  Problems certified
+    primal-infeasible in stage 1 keep that verdict and skip stage 2.
+    Iteration counts are the sum of both stages.
+
+    fused_stage1: None runs stage 1 through the fused kernel wherever
+    `kernels.fused.fused_eligibility` allows it and through the eager loop
+    otherwise, silently: on a tree with configuration-dependent subspaces
+    this is THE tight-tolerance path, so there is no fused path to fall
+    back from.  True requires the kernel (raises with the blocker's name
+    when it cannot run); False runs the eager loop.  On CPU tensors the
+    fused path is the eager loop.  Stage 2 is the eager float64 loop."""
+    q = _as_batch(tree, q)
+    validate_problem(tree, problem)
+    p1 = params.replace(
+        tol_abs=max(stage1_tol, params.tol_abs),
+        tol_rel=max(stage1_tol, params.tol_rel),
+        max_iter=min(params.max_iter, stage1_max_iter),
+    )
+    p2 = params.replace(
+        warm_start=True,
+        max_iter=stage2_max_iter or max(20, params.max_iter // 4),
+        mu=stage2_mu,
+        mu_equality_scale_factor=stage2_mu_eq_scale,
+        freeze_infeasible_on_warm_start=True,
+    )
+    if batch_tile is None:
+        batch_tile = default_batch_tile(tree.njoints)
+    from ..kernels.fused import fused_eligibility
+
+    ok, reason = fused_eligibility(tree, p1, q.shape[0], batch_tile, dtype=None,
+                                   num_constraints=problem.num_constraints)
+    if fused_stage1 is None:
+        fused_stage1 = ok
+    elif fused_stage1 and not ok:
+        raise ValueError(
+            f"solve_two_stage: fused_stage1=True but the fused kernel cannot "
+            f"run here: {reason}")
+    f32, f64 = torch.float32, torch.float64
+    return _two_stage(
+        tree.astype(f32), tree.astype(f64), p1, p2, q,
+        _cast_problem(problem, f32), _cast_problem(problem, f64),
+        _cast_state(warm_state, f32) if warm_state is not None else None,
+        fused_stage1=bool(fused_stage1), batch_tile=batch_tile,
+    )
+
+
+def _two_stage(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
+               fused_stage1=False, batch_tile=16) -> SolveResult:
+    """The body of loik_tpu's `_two_stage_jit`, run eagerly."""
+    if fused_stage1:
+        from ..kernels.fused import fused_loop
+
+        loop = fused_loop(batch_tile)
+    else:
+        loop = _solve_loop
+    res1 = _solve_impl(tree32, p1, q.to(torch.float32), prob32, warm_state, loop=loop)
+    res2 = _solve_impl(tree64, p2, q.to(torch.float64), prob64,
+                       _cast_state(res1.state, torch.float64))
+    return dataclasses.replace(res2, iterations=res1.iterations + res2.iterations)
+
+
+def solve_delta_refined(
+    tree,
+    params: SolverParams,
+    q,
+    problem: IkProblem,
+    stage1_tol: float = 2e-5,
+    stage2_max_iter: Optional[int] = None,
+) -> SolveResult:
+    """Pure-float32 tight-tolerance solve by delta-form refinement.
+
+    Stage 1 solves cold in float32 down to the float32 floor.  Stage 2
+    re-solves for the CORRECTION dx = x - x_hat: substituting v = v_hat + dv
+    shifts the QP to
+        min 1/2 dx' P dx + (q + P x_hat)' dx
+        s.t. A_c dv = b - A v_hat,  lb - nu_hat <= dnu <= ub - nu_hat,
+    the SAME solver on a shifted problem (v_ref - v_hat, b - A v_hat, bounds
+    - nu_hat), warm-started at dx = 0 with the stage-1 duals and penalties
+    (the delta problem's optimal duals equal the original ones), and
+    certified against the ORIGINAL problem's adaptive-tolerance scales
+    (delta-space magnitudes are ~0 and would shrink the tolerance to
+    tol_abs).  Infeasibility certificates are off in delta space, where
+    they are degenerate.
+
+    Both stages run the eager loop, as loik_tpu's runs its plain solve.
+    Returns results in the ORIGINAL problem space (nu = nu_hat + dnu, vis =
+    v_hat + dv); the state is the delta stage's, as in loik_tpu."""
+    f32 = torch.float32
+    q32 = _as_batch(tree, q).to(f32)
+    validate_problem(tree, problem)
+    tree32 = tree.astype(f32)
+    prob32 = _cast_problem(problem, f32)
+    p1 = params.replace(tol_abs=max(stage1_tol, params.tol_abs),
+                        tol_rel=max(stage1_tol, params.tol_rel))
+    res1 = _solve_impl(tree32, p1, q32, prob32, None)
+    st1 = res1.state
+
+    with full_f32_matmul():
+        # ---- the shifted (delta) problem, batch-leading ------------------
+        v_hat = st1.vis.movedim(-1, 0)                   # (B,N,6)
+        nu_hat = res1.nu                                 # (B,nv)
+        B = v_hat.shape[0]
+
+        def lead(x, core_ndim):
+            return x.expand((B,) + x.shape) if x.ndim == core_ndim else x
+
+        H_l, A_l = lead(prob32.H_ref, 3), lead(prob32.A, 3)
+        v_ref_l, b_l = lead(prob32.v_ref, 2), lead(prob32.b, 2)
+        cl = problem.constraint_links
+        v_c = torch.stack([v_hat[:, c] for c in cl], dim=1)           # (B,NC,6)
+        Av_hat = (A_l @ v_c[..., None])[..., 0]
+        prob_d = IkProblem(
+            H_ref=H_l, v_ref=v_ref_l - v_hat, A=A_l, b=b_l - Av_hat,
+            lb=lead(prob32.lb, 1) - nu_hat, ub=lead(prob32.ub, 1) - nu_hat,
+            constraint_links=cl,
+        )
+
+        # ---- warm start at dx = 0 with the stage-1 duals -----------------
+        warm = dataclasses.replace(st1, vis=torch.zeros_like(st1.vis),
+                                   nu=torch.zeros_like(st1.nu), z=st1.z - st1.nu)
+        p2 = params.replace(
+            warm_start=True,
+            keep_mu_on_warm_start=True,
+            check_feasibility=False,
+            freeze_infeasible_on_warm_start=True,
+            max_iter=stage2_max_iter or max(60, params.max_iter // 2),
+        )
+        # the original problem's adaptive-tolerance scales
+        # (CheckConvergence, loik-loid-optimized.hxx:540-565)
+        Href_vhat = (H_l @ v_hat[..., None])[..., 0]
+        Hv0 = (H_l.transpose(-1, -2) @ v_ref_l[..., None])[..., 0]
+        scale_p = torch.maximum(
+            torch.maximum(Av_hat.abs().amax((1, 2)), nu_hat.abs().amax(1)),
+            b_l.abs().amax((1, 2)))
+        scale_d = torch.maximum(
+            torch.maximum(Href_vhat.abs().amax((1, 2)), Hv0.abs().amax((1, 2))),
+            torch.maximum(st1.fdpa.abs().amax((0, 1)), st1.stfw.abs().amax((0, 1))))
+    res2 = _solve_impl(tree32, p2, q32, prob_d, warm, tol_scales=(scale_p, scale_d))
+
+    # ---- recombine in the original space --------------------------------
+    return dataclasses.replace(
+        res2,
+        nu=res2.nu + nu_hat,
+        z=res2.z + nu_hat,
+        vis=res2.vis + v_hat,
+        iterations=res1.iterations + res2.iterations,
     )

@@ -638,13 +638,17 @@ def _as_batch(tree, q) -> torch.Tensor:
 
 def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
                 warm_state: Optional[SolverState], loop=_solve_loop,
-                liMi=None) -> SolveResult:
+                liMi=None, tol_scales=None) -> SolveResult:
     """FK, prepare, reset, then ``loop`` (the eager loop here; the fused
     kernel's wrapper in `kernels/fused.py`) on the trailing-batch state.
 
     liMi: ``(liMi_R, liMi_p)`` from `fwd_pass_init` when the caller froze FK
     (the SolveInit/Solve split, loik-loid-optimized.hpp:335-361); q may then
-    be None, except for trees with configuration-dependent subspaces."""
+    be None, except for trees with configuration-dependent subspaces.
+
+    tol_scales: ``(primal, dual)`` (B,) floors of the adaptive-tolerance
+    scales, the ORIGINAL problem's, for a solve of a delta problem
+    (`refine.solve_delta_refined`)."""
     with full_f32_matmul():
         if liMi is None:
             dtype, B, dev = q.dtype, q.shape[0], q.device
@@ -662,6 +666,11 @@ def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
                 )
             prob = dataclasses.replace(
                 prob, S_list=q_dependent_S_list(tree, q, dtype))
+        if tol_scales is not None:
+            prob = dataclasses.replace(
+                prob,
+                tol_scale_primal=torch.as_tensor(tol_scales[0], dtype=dtype, device=dev),
+                tol_scale_dual=torch.as_tensor(tol_scales[1], dtype=dtype, device=dev))
         if warm_state is None:
             st = init_state(tree, B, problem.num_constraints, dtype, dev)
         else:

@@ -1,7 +1,6 @@
 """Batched spatial algebra on SE(3), motions (twists) and forces (wrenches).
 
-The pieces of `loik_tpu.spatial` that forward kinematics, manifold
-integration and the URDF loader use, on torch tensors with arbitrary LEADING
+The port of `loik_tpu.spatial`, on torch tensors with arbitrary LEADING
 batch dims:
 
   - SE(3) transform:  pair ``(R, p)`` with ``R (..., 3, 3)`` rotation and
@@ -113,11 +112,21 @@ def rpy_to_rotmat(rpy: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
 
 
+def se3_identity(dtype=torch.float64, device=None):
+    return (torch.eye(3, dtype=dtype, device=device),
+            torch.zeros((3,), dtype=dtype, device=device))
+
+
 def se3_compose(Ra, pa, Rb, pb):
     """(aMb) * (bMc) -> aMc."""
     R = Ra @ Rb
     p = pa + (Ra @ pb[..., None])[..., 0]
     return R, p
+
+
+def se3_inverse(R, p):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_mv(Rt, p)
 
 
 def _mv(R, v):
@@ -148,6 +157,38 @@ def act_force(R, p, f):
     lin = _mv(R, f[..., LIN])
     ang = _mv(R, f[..., ANG]) + torch.linalg.cross(p.expand_as(lin), lin)
     return torch.cat([lin, ang], dim=-1)
+
+
+def act_inv_force(R, p, f):
+    """aMb^-1 acting on a force expressed in A -> expressed in B."""
+    lin = f[..., LIN]
+    ang = _mtv(R, f[..., ANG] - torch.linalg.cross(p.expand_as(lin), lin))
+    return torch.cat([_mtv(R, lin), ang], dim=-1)
+
+
+def se3_action_matrix(R, p):
+    """6x6 motion action matrix X with X v = act_motion(R, p, v):
+    X = [[R, [p]x R], [0, R]] (pinocchio SE3::toActionMatrix)."""
+    pxR = skew(p) @ R
+    top = torch.cat([R, pxR], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_dual_action_matrix(R, p):
+    """6x6 force action matrix X* with X* f = act_force(R, p, f):
+    X* = [[R, 0], [[p]x R, R]] (pinocchio SE3::toDualActionMatrix)."""
+    pxR = skew(p) @ R
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bot = torch.cat([pxR, R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_act_on_sym6(R, p, H):
+    """Congruence X* H X^-1 of a symmetric 6x6 onto the parent frame
+    (`pinocchio::impl::internal::SE3actOn`); X^-1 = X*^T."""
+    Xd = se3_dual_action_matrix(R, p)
+    return Xd @ H @ Xd.transpose(-1, -2)
 
 
 def exp3_quat(w: torch.Tensor) -> torch.Tensor:
@@ -204,3 +245,91 @@ def se3_exp_translation(v: torch.Tensor) -> torch.Tensor:
     V = (torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
          + b[..., None, None] * K + d[..., None, None] * KK)
     return _mv(V, u)
+
+
+def se3_exp(v: torch.Tensor):
+    """SE(3) exponential of a twist (..., 6) [linear; angular] -> (R, p):
+    R = exp3(w), p = V(w) u with V the left-Jacobian of SO(3), both
+    Taylor-guarded at w = 0 with the dtype-aware cutoff."""
+    u, w = v[..., LIN], v[..., ANG]
+    a, b, d, K, KK = _so3_coeffs(w)
+    eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
+    R = eye + a[..., None, None] * K + b[..., None, None] * KK
+    V = eye + b[..., None, None] * K + d[..., None, None] * KK
+    return R, _mv(V, u)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """SO(3) logarithm: rotation matrix (..., 3, 3) -> rotation vector
+    (..., 3) with |w| in [0, pi], branch for branch as `loik_tpu.spatial`:
+    Taylor near theta = 0, theta / (2 sin theta) vee(R - R^T) in the bulk,
+    and the axis from the diagonal near theta = pi (where vee(R - R^T) ~
+    2 sin(theta) n underflows), each component's sign from the symmetric
+    part's row of the largest one, the overall sign tied to vee so that the
+    branch is continuous across its threshold.  Device ops only: a tick of
+    closed-loop IK takes it without a host synchronisation."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    c = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(c)
+    theta2 = theta * theta
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                       R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    small = theta2 < _small_angle_cutoff(R.dtype)
+    # theta / (2 sin theta): series 1/2 + theta^2/12 + 7 theta^4/720
+    sin_t = torch.sin(theta)
+    safe_sin = torch.where(small, torch.ones_like(sin_t), sin_t)
+    coef = torch.where(small, 0.5 + theta2 / 12.0 + 7.0 * theta2 * theta2 / 720.0,
+                       theta / (2.0 * safe_sin))
+    w_bulk = coef[..., None] * vee
+    # near pi: n_i = sqrt((R_ii - c) / (1 - c)), signs from S = (R + R^T)/2
+    near_pi = c < -0.99
+    one_minus_c = torch.where(near_pi, 1.0 - c, torch.ones_like(c))
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    n_abs = torch.sqrt(torch.clamp((diag - c[..., None]) / one_minus_c[..., None], min=0.0))
+    S = 0.5 * (R + R.transpose(-1, -2))
+    k = torch.argmax(n_abs, dim=-1)                     # reference component
+    Sk = torch.gather(S, -2, k[..., None, None].expand(k.shape + (1, 3)))[..., 0, :]
+    onehot_k = torch.arange(3, device=R.device) == k[..., None]
+    # component k is the positive reference (S[k,k] = c + (1-c) n_k^2 may
+    # itself be negative, so it must not supply the sign)
+    sgn = torch.where(onehot_k, 1.0, torch.where(Sk >= 0.0, 1.0, -1.0)).to(R.dtype)
+    n = sgn * n_abs
+    flip = (n * vee).sum(-1) < 0.0
+    n = torch.where(flip[..., None], -n, n)
+    return torch.where(near_pi[..., None], theta[..., None] * n, w_bulk)
+
+
+def se3_log(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """SE(3) logarithm: placement (R, p) -> twist (..., 6) [linear; angular],
+    the inverse of `se3_exp`: u = V(w)^-1 p, Taylor-guarded near w = 0 with
+    the dtype-aware cutoff."""
+    w = so3_log(R)
+    theta2 = (w * w).sum(-1)
+    small = theta2 < _small_angle_cutoff(R.dtype)
+    safe2 = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(safe2)
+    half = 0.5 * theta
+    # g = 1/theta^2 - cos(theta/2) / (2 theta sin(theta/2));
+    # series 1/12 + theta^2/720
+    sin_h = torch.sin(half)
+    safe_sin = torch.where(small, torch.ones_like(sin_h), sin_h)
+    g = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    1.0 / safe2 - torch.cos(half) / (2.0 * theta * safe_sin))
+    K = skew(w)
+    Vinv = (torch.eye(3, dtype=R.dtype, device=R.device).expand(K.shape)
+            - 0.5 * K + g[..., None, None] * (K @ K))
+    return torch.cat([_mv(Vinv, p), w], dim=-1)
+
+
+def motion_cross(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """Motion cross product v1 x v2 (spatial velocity bracket), [lin; ang]."""
+    w1, u1 = v1[..., ANG], v1[..., LIN]
+    w2, u2 = v2[..., ANG], v2[..., LIN]
+    ang = torch.linalg.cross(w1, w2)
+    lin = torch.linalg.cross(w1, u2) + torch.linalg.cross(u1, w2)
+    return torch.cat([lin, ang], dim=-1)
+
+
+def inf_norm(x: torch.Tensor, axis=None) -> torch.Tensor:
+    return x.abs().amax() if axis is None else x.abs().amax(dim=axis)

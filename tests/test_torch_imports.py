@@ -44,7 +44,9 @@ def test_the_scan_covers_the_package():
             "loik_tpu_torch/model/builders.py", "loik_tpu_torch/model/robots.py",
             "loik_tpu_torch/model/urdf.py", "loik_tpu_torch/convert.py",
             "loik_tpu_torch/parallel/__init__.py", "loik_tpu_torch/parallel/mixed.py",
-            "loik_tpu_torch/solver/stream.py"} <= names
+            "loik_tpu_torch/solver/stream.py", "loik_tpu_torch/solver/clik.py",
+            "loik_tpu_torch/parallel/multistart.py",
+            "loik_tpu_torch/model/kinematics.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

@@ -334,5 +334,8 @@ def test_delta_duals_refuses_q_dependent_subspaces():
     problem = lt.make_problem(tt, (6,))
     with pytest.raises(ValueError, match="constant motion subspaces only"):
         lt.solve_delta_duals(tt, lt.SolverParams(), tt.neutral()[None], problem)
-    with pytest.raises(ValueError, match="constant motion subspaces only"):
-        lt.DiffIkSolver(tt, lt.SolverParams(), (6,)).solve_refined(tt.neutral()[None])
+    # DiffIkSolver.solve_refined takes the two-stage path there instead; a
+    # kernel it is told to require is refused by name
+    with pytest.raises(ValueError, match="configuration-dependent motion subspaces"):
+        lt.DiffIkSolver(tt, lt.SolverParams(), (6,), fused="require").solve_refined(
+            tt.neutral()[None])

@@ -449,3 +449,75 @@ def test_kernel_rejects_operands_on_another_device():
     tree, prob, st = prepared(params, B=64, device="cuda")
     with pytest.raises(ValueError, match="expected torch.float32 on cuda"):
         fused.fused_solve_loop(tree, params, dataclasses.replace(prob, b=prob.b.cpu()), st)
+
+
+def _clik_inputs(B, device):
+    """panda_arm from neutral towards FK of neutral moved by 0.35 N(0, 1)
+    tangent steps (seeded on the host), float32 on ``device``."""
+    tree = lt.robots.panda_arm("float32", device=device)
+    gen = torch.Generator().manual_seed(2)
+    dq = (0.35 * torch.randn((B, tree.nv), generator=gen)).to(device)
+    q0 = tree.neutral().expand(B, tree.nq).contiguous()
+    _, _, oR, op = tree.fwd_kinematics(tree.integrate(q0, dq))
+    return tree, q0, oR[:, 6].contiguous(), op[:, 6].contiguous()
+
+
+@pytest.mark.cuda
+def test_clik_ticks_on_card_equal_eager_ticks():
+    """Closed-loop IK: one launch per tick, every tick's solve warm from the
+    self-healed state of the last, the same bits as the eager loop's ticks."""
+    _need_card()
+    B, T = 1024, 6
+    tree, q0, tR, tp = _clik_inputs(B, "cuda")
+    params = lt.SolverParams(max_iter=200, tol_abs=1e-4, tol_rel=1e-4)
+    run = dict(dt=0.1, steps=T, gain=2.0)
+    n0 = fused.LAUNCHES
+    got = lt.solve_clik(tree, params, q0, tR, tp, 6, fused="require", **run)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + T
+    want = lt.solve_clik(tree, params, q0, tR, tp, 6, fused=False, **run)
+    for name in ("q", "nu", "err_history", "pos_err", "rot_err", "reached", "converged",
+                 "iterations"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    states_equal(got.state, want.state)
+    assert bool(torch.isfinite(got.q).all())
+
+
+@pytest.mark.cuda
+def test_two_stage_stage1_on_card_equals_eager_stage1():
+    """solve_two_stage: the float32 stage 1 as one launch, then the eager
+    float64 stage 2; the same bits as both stages eager."""
+    _need_card()
+    tree = lt.robots.panda_arm("float32", device="cuda")
+    problem = lt.make_problem(tree, (6,), b=np.array([[0, 0, 0.2, 0, 0, 0]]),
+                              lb=-4 * np.ones(7), ub=4 * np.ones(7))
+    q = tree.random_configuration((2048,), generator=torch.Generator("cuda").manual_seed(3))
+    params = lt.SolverParams(**FLAGSHIP, check_interval=8)
+    n0 = fused.LAUNCHES
+    res = lt.solve_two_stage(tree, params, q, problem, stage1_max_iter=32, stage2_max_iter=4)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 1
+    ref = lt.solve_two_stage(tree, params, q, problem, stage1_max_iter=32, stage2_max_iter=4,
+                             fused_stage1=False)
+    for name in ("nu", "z", "vis", "converged", "primal_infeasible", "iterations",
+                 "primal_residual", "dual_residual"):
+        assert torch.equal(getattr(res, name), getattr(ref, name)), name
+    assert res.nu.dtype == torch.float64
+
+
+@pytest.mark.cuda
+def test_multistart_delta_on_card_launches_twice_per_batch():
+    _need_card()
+    tree = lt.robots.panda_arm("float32", device="cuda")
+    problem = lt.make_problem(tree, (6,), b=np.array([[0, 0, 0.2, 0, 0, 0]]),
+                              lb=-4 * np.ones(7), ub=4 * np.ones(7))
+    params = lt.SolverParams(**FLAGSHIP, check_interval=8)
+    gen = torch.Generator("cuda").manual_seed(4)
+    n0 = fused.LAUNCHES
+    res = lt.parallel.solve_multistart(
+        tree, params, problem, gen, 4096, k=8,
+        solve_fn=lambda t, p, q, pr: lt.solve_delta_duals(t, p, q, pr, fused="require"))
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 2
+    assert res.found and bool((res.error[:-1] <= res.error[1:]).all())
+    assert bool(torch.isfinite(res.error).all()) and float(res.error.max()) <= 1e-5

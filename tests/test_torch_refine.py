@@ -193,7 +193,7 @@ def test_diffik_solver_updates_and_warm_start():
         solver.update_eq_constraint(3, b=np.zeros(6))
     with pytest.raises(ValueError, match="shape mismatch"):
         solver.update_ineq_constraints(-np.ones(7), np.ones(6))
-    with pytest.raises(ValueError, match="not ported yet"):
-        solver.solve_refined(q, method="two-stage")
+    with pytest.raises(ValueError, match="method must be 'delta' or 'two-stage'"):
+        solver.solve_refined(q, method="three-stage")
     with pytest.raises(ValueError, match="fused must be"):
         lt.DiffIkSolver(tt, params, (6,), fused="always")

@@ -378,4 +378,6 @@ def test_api_refusals():
     with pytest.raises(ValueError, match="logging"):
         lt.DiffIkSolver(tt, params.replace(logging=True), (ee,), problem=tp,
                         fused=False).track_scan(torch.as_tensor(q), b_sweep(2))
-    assert not hasattr(solver, "reach")     # waits for solve_clik
+    with pytest.raises(ValueError, match="multiple constraints; pass link= explicitly"):
+        two.reach(torch.as_tensor(q), torch.eye(3, dtype=torch.float64),
+                  torch.zeros(3, dtype=torch.float64))
