@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the repository root, one GPU
 
 Eight main paths through the fused ADMM kernel
-(`loik_tpu_torch/kernels/csrc/fused_admm.cu`).  Three are the
+(`loik_tpu_torch/kernels/csrc/fused_admm.cu`), then the differentiable solve
+and the logged mirror of a kernel solve (phases 15-16).  Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
 tol 1e-6, whose two float32 stages each run the kernel:
@@ -117,7 +118,28 @@ Phases (any failure raises, so the script exits nonzero):
  14. the two-stage path: one launch, the float64 certificate of every
      converged problem, the converged fraction beside the delta path's,
      stage 1, stage 2 and total times; then `mobile_ur5` with no launch, no
-     warning, certified the same way.
+     warning, certified the same way;
+ 15. the differentiable solve (`solve_unrolled`, no kernel: the eager body
+     under autograd) on the flagship's task, b_z = 0.2 the parameter,
+     B = 16384, check_interval 1, 60 calls: no launch; in float64 the
+     forward equals `solve` with the same budget (nu within 1e-8 where both
+     converged, converged flags equal); d loss/d b_z and d loss/d q at two
+     coordinates (loss = sum nu^2) against central differences on the card
+     (tests/test_diff.py's bounds); at B = 1024 the second derivative
+     against a central difference of the first (1e-4); the float32 gradient
+     finite and within UNROLLED's bound of the float64 one; forward and
+     forward + backward times (CUDA events, median of 5) and the peak memory
+     of a step in both types; 0 host synchronisations in a warm forward;
+ 16. logging and the mirror: `debug_mirror(..., atol=0.0)` of the kernel's
+     flagship float32 `solve_fused` at B = 16384, of the 64 problems that
+     ran longest (`sample=`) and of a warm tracking tick (tol 1e-4): flags,
+     iterations and both residuals bit for bit, and the last logged
+     residual of every problem its reported one; the eager solve with and
+     without logging, in turns; `no_recompile_guard` silent over three warm
+     `solve_refined` calls and firing on a first solve at B = 65536;
+     `trace()` naming the kernel around a delta and a two-stage solve (its
+     events against the launches counted, their device time), and the
+     two-stage stage-1 launch re-run alone in five profiler sessions.
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -154,6 +176,17 @@ MULTISTART = dict(B=16384, seeds=100_000, k=8, stage1_max_iter=32, prefix=1024)
 CLIK = dict(B=16384, steps=80, dt=0.1, gain=2.0, tol=1e-4, max_iter=100, spread=0.35,
             prefix=1024, short=10, reached_prefix=64)
 TWO_STAGE = dict(stage1_max_iter=32, stage2_max_iter=4, mobile_B=4096)
+# the differentiable solve (flagship task, check_interval 1), the second
+# derivative's batch, the float32 gradient's bound against float64, and the
+# batch of the allocation guard's first solve.  The float32 bound: at tol
+# 1e-6 float32 sits at its floor (about 1e-5), so problems freeze at other
+# iterations than in float64 and the unrolled gradients of those differ;
+# the first reading was 8.84e-3 (NVIDIA H100 80GB HBM3, 700 W), the bound
+# is about twice that.  After the cache is emptied the allocator's pool
+# settles within a few calls: one warm-up call left it reserving 2 more
+# segments over the next three
+UNROLLED = dict(B=16384, num_iters=60, B_second=1024, f32_rel_bound=2e-2, guard_B=65536,
+                guard_warmup=3)
 
 
 def log(msg: str) -> None:
@@ -276,18 +309,65 @@ def cuda_median_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
-def kernel_device_ms(torch, fn):
-    """Device time of the fused kernel itself in one call of fn, from
-    torch.profiler (the CUDA-event times above also hold the wrapper's
-    operand copies and host work); None if the profiler saw no device time."""
+def profiled(torch, fn):
+    """One call of fn on torch.profiler.  Returns the wall time of the block
+    (ms, host clock, synced) and, in us, the device time of the fused
+    kernel's launches and of every kernel, copy and set, summed over the
+    events of the exported trace (`trace_device_us`), and the fused
+    kernel's time as `key_averages()` reports it (phase 16 sets the two
+    side by side)."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if "fused_admm_kernel" in e.key)
+    wall = (time.perf_counter() - t0) * 1e3
+    avg_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                 if "fused_admm_kernel" in e.key)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        launches, kernel_us, device_us = trace_device_us(path)
+    return dict(wall_ms=wall, kernel_us=kernel_us, kernel_avg_us=avg_us,
+                device_us=device_us, launches=launches)
+
+
+def trace_device_us(path):
+    """From a Chrome trace of torch.profiler: (the fused kernel's launches,
+    their device time, the device time of every kernel, copy and set), us."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ours = [e for e in device
+            if e.get("cat") == "kernel" and "fused_admm_kernel" in e.get("name", "")]
+    return (len(ours), sum(e.get("dur", 0) for e in ours),
+            sum(e.get("dur", 0) for e in device))
+
+
+def kernel_device_ms(torch, fn):
+    """Device time of the fused kernel itself in one call of fn, from the
+    profiler's trace (the CUDA-event times above also hold the wrapper's
+    operand copies and host work); None if the trace holds no launch."""
+    us = profiled(torch, fn)["kernel_us"]
     return us / 1e3 if us else None
+
+
+def idle_report(what, prof, T):
+    """The kernel alone per tick, device busy and idle share of one
+    `profiled` stream or run of T ticks."""
+    if not prof["device_us"]:
+        log("    profiler saw no device time: kernel alone and idle share not measured")
+        return None
+    alone = prof["kernel_us"] / 1e3 / T if prof["kernel_us"] else None
+    log(f"    profiler over one {what}: wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_us'] / 1e3:.3f} ms, idle share "
+        f"{1 - prof['device_us'] / 1e3 / prof['wall_ms']:.4f}, kernel alone "
+        + ("not measured" if alone is None else f"{alone:.4f} ms per tick"))
+    return alone
 
 
 def link_velocities(sm, bsp, tree, q, nu):
@@ -795,7 +875,6 @@ def count_syncs(torch, fn):
 def tracking_path(mods, phase):
     """Phase 11: warm-started tracking through `DiffIkSolver`."""
     torch, lt, fused_mod, sm, _, _ = mods
-    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     T, tol = TRACKING["T"], TRACKING["tol"]
@@ -904,23 +983,7 @@ def tracking_path(mods, phase):
             f"p90 {statistics.quantiles(lat, n=10)[-1]:.4f} ms per tick (host clock)")
 
         # one stream on the profiler: the kernel alone, device busy, idle share
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            solver.track_scan(q, b_seq)
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-        ker_us = sum(getattr(e, "self_device_time_total", 0) for e in events
-                     if "fused_admm_kernel" in e.key)
-        alone = ker_us / 1e3 / T if ker_us else None
-        if dev_us:
-            log(f"    profiler over one stream: wall {wall:.3f} ms, device busy "
-                f"{dev_us / 1e3:.3f} ms, idle share {1 - dev_us / 1e3 / wall:.4f}, kernel "
-                f"alone {alone:.4f} ms per tick")
-        else:
-            log("    profiler saw no device time: kernel alone and idle share not measured")
+        alone = idle_report("stream", profiled(torch, lambda: solver.track_scan(q, b_seq)), T)
 
         # the ticks of one more stream recorded: every launch again, timed,
         # with its bound (the ticks differ: one lasts as long as its slowest
@@ -1036,7 +1099,6 @@ def clik_inputs(lt, torch, B):
 def clik_path(mods, phase):
     """Phase 13: closed-loop position IK through `DiffIkSolver.reach`."""
     torch, lt, fused_mod, sm, _, _ = mods
-    from torch.profiler import ProfilerActivity, profile
 
     B, T = CLIK["B"], CLIK["steps"]
     tree, q0, tR, tp, ee = clik_inputs(lt, torch, B)
@@ -1112,22 +1174,8 @@ def clik_path(mods, phase):
             raise AssertionError(f"clik: kernel path against eager path after {steps} ticks")
 
     # one run on the profiler: the kernel alone per tick, the device's idle share
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solver.reach(q0, tR, tp, steps=T, **run)
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-    ker_us = sum(getattr(e, "self_device_time_total", 0) for e in events
-                 if "fused_admm_kernel" in e.key)
-    alone = ker_us / 1e3 / T if ker_us else None
-    if dev_us:
-        log(f"    profiler over one run: wall {wall:.3f} ms, device busy {dev_us / 1e3:.3f} ms, "
-            f"idle share {1 - dev_us / 1e3 / wall:.4f}, kernel alone {alone:.4f} ms per tick")
-    else:
-        log("    profiler saw no device time: kernel alone and idle share not measured")
+    alone = idle_report("run", profiled(torch, lambda: solver.reach(q0, tR, tp, steps=T, **run)),
+                        T)
 
     # every launch of one run again, timed, with its bound; kernel against
     # plain version on the last tick
@@ -1238,6 +1286,269 @@ def two_stage_path(mods, phase):
     return kernels_entry("two_stage", launches, rep)
 
 
+def unrolled_path(mods, phase):
+    """Phase 15: the differentiable solve (`solve_unrolled`, the eager body
+    under autograd with a checkpoint per call) on the card."""
+    torch, lt, fused_mod, sm, _, _ = mods
+    B, n, B2 = UNROLLED["B"], UNROLLED["num_iters"], UNROLLED["B_second"]
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+
+    def setup(dtype, B):
+        tree, links, problem, params, q = config(lt, torch, "flagship", dtype, dev, B, 1)
+        return tree, problem, params, q
+
+    def with_bz(problem, bz):
+        """The problem with b[0, 2] = bz, a 0-d tensor (differentiable); the
+        mask is made on the device (an element assignment would copy from
+        the host)."""
+        mask = (torch.arange(6, device=dev) == 2).to(problem.b.dtype)
+        return problem.replace(b=problem.b * (1 - mask) + bz * mask)
+
+    def loss(tree, params, q, problem, bz):
+        res = lt.solve_unrolled(tree, params, q, with_bz(problem, bz), num_iters=n)
+        return (res.nu ** 2).sum()
+
+    def grad_bz(tree, params, q, problem, bz0, create_graph=False):
+        bz = torch.tensor(bz0, dtype=q.dtype, device=dev, requires_grad=True)
+        g, = torch.autograd.grad(loss(tree, params, q, problem, bz), bz,
+                                 create_graph=create_graph)
+        return g, bz
+
+    # ---- forward parity in float64: the while loop with the same budget
+    tree, problem, params, q = setup(f64, B)
+    fused_mod.LAUNCHES = 0
+    res_u = lt.solve_unrolled(tree, params, q, problem, num_iters=n)
+    torch.cuda.synchronize()
+    launches = fused_mod.LAUNCHES
+    # max_iter n + 1 runs at most n iterations, as n body calls do
+    res_w = lt.solve(tree, params.replace(max_iter=n + 1), q, problem)
+    both = res_u.converged & res_w.converged
+    nu_err = float((res_u.nu - res_w.nu)[both].abs().max())
+    flags = int((res_u.converged != res_w.converged).sum())
+    log(f"[{phase}] solve_unrolled panda_arm B={B} num_iters={n} check_interval 1 f64: "
+        f"{launches} kernel launches; converged {float(res_u.converged.double().mean()):.4f}; "
+        f"against solve (max_iter {n + 1}): nu max |diff| {nu_err:.3e} on the "
+        f"{int(both.sum())} problems both converged, converged flags differ on {flags}")
+    if launches or not (nu_err <= 1e-8 and flags == 0):
+        raise AssertionError("solve_unrolled: forward parity against solve not met")
+
+    # ---- first derivatives against central differences, float64
+    bz0 = 0.2
+    g, _ = grad_bz(tree, params, q, problem, bz0)
+    with torch.no_grad():
+        eps = 1e-5
+        fd = (loss(tree, params, q, problem, torch.tensor(bz0 + eps, dtype=f64, device=dev))
+              - loss(tree, params, q, problem, torch.tensor(bz0 - eps, dtype=f64, device=dev))
+              ) / (2 * eps)
+    bz_c = torch.tensor(bz0, dtype=f64, device=dev)
+    log(f"    d loss/d b_z {float(g):.12e}, central difference (eps 1e-5) {float(fd):.12e}, "
+        f"rel gap {abs(float(g - fd)) / abs(float(fd)):.3e} (bound 1e-4)")
+    if not abs(float(g - fd)) <= 1e-4 * abs(float(fd)):
+        raise AssertionError("d loss/d b_z misses its central difference")
+    qg = q.clone().requires_grad_(True)
+    gq, = torch.autograd.grad(loss(tree, params, qg, problem, bz_c), qg)
+    eps = 1e-6
+    for bi, ji in ((0, 1), (B // 2, 4)):
+        dq = torch.zeros_like(q)
+        dq[bi, ji] = eps
+        with torch.no_grad():
+            fdq = (loss(tree, params, q + dq, problem, bz_c)
+                   - loss(tree, params, q - dq, problem, bz_c)) / (2 * eps)
+        gap = abs(float(gq[bi, ji] - fdq))
+        log(f"    d loss/d q[{bi}, {ji}] {float(gq[bi, ji]):.12e}, central difference "
+            f"(eps 1e-6) {float(fdq):.12e}, gap {gap:.3e} (bound 1e-8 + 5e-4 x |fd|)")
+        if not gap <= 1e-8 + 5e-4 * abs(float(fdq)):
+            raise AssertionError(f"d loss/d q[{bi}, {ji}] misses its central difference")
+    if not bool(torch.isfinite(gq).all()):
+        raise AssertionError("d loss/d q is not finite")
+
+    # ---- the second derivative, B2 problems
+    tree2, problem2, params2, q2 = setup(f64, B2)
+    g2, bz = grad_bz(tree2, params2, q2, problem2, bz0, create_graph=True)
+    h, = torch.autograd.grad(g2, bz)
+    eps = 1e-5
+    fdh = (grad_bz(tree2, params2, q2, problem2, bz0 + eps)[0]
+           - grad_bz(tree2, params2, q2, problem2, bz0 - eps)[0]) / (2 * eps)
+    gap = abs(float(h - fdh)) / abs(float(fdh))
+    log(f"    B={B2}: d2 loss/d b_z2 {float(h):.10e}, central difference of the first "
+        f"derivative (eps 1e-5) {float(fdh):.10e}, rel gap {gap:.3e} (bound 1e-4)")
+    if not gap <= 1e-4:
+        raise AssertionError("the second derivative misses its central difference")
+
+    # ---- float32 against float64
+    t32, p32, pr32, q32 = setup(f32, B)
+    g32, _ = grad_bz(t32, pr32, q32, p32, bz0)
+    rel32 = abs(float(g32.double() - g)) / abs(float(g))
+    log(f"    float32 d loss/d b_z {float(g32):.8e}, relative gap to float64 {rel32:.3e} "
+        f"(bound {UNROLLED['f32_rel_bound']:g})")
+    if not (bool(torch.isfinite(g32)) and rel32 <= UNROLLED["f32_rel_bound"]):
+        raise AssertionError("float32 gradient not finite or too far from float64")
+
+    # ---- timings and memory per dtype; host synchronisations of a forward
+    for dtype, (t_, p_, pa_, q_) in ((f32, (t32, p32, pr32, q32)),
+                                     (f64, (tree, problem, params, q))):
+        bz = torch.tensor(bz0, dtype=dtype, device=dev, requires_grad=True)
+        _, syncs = count_syncs(torch, lambda: loss(t_, pa_, q_, p_, bz))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd, step = [], []
+        for rep in range(6):        # a warm-up, then 5 steps, each timed at
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()          # the end of its forward and of its backward
+            value = loss(t_, pa_, q_, p_, bz)
+            ev[1].record()
+            torch.autograd.grad(value, bz)
+            ev[2].record()
+            ev[2].synchronize()
+            if rep:
+                fwd.append(ev[0].elapsed_time(ev[1]))
+                step.append(ev[0].elapsed_time(ev[2]))
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"    {str(dtype).removeprefix('torch.')} B={B}: forward "
+            f"{statistics.median(fwd):.3f} ms, forward + backward "
+            f"{statistics.median(step):.3f} ms (CUDA events, median of 5 steps after a "
+            f"warm-up), peak memory of a step {peak / 2**30:.3f} GiB above the inputs, "
+            f"host synchronisations in a warm forward {len(syncs)}")
+        if syncs:
+            raise AssertionError("solve_unrolled synchronises the host: " + "; ".join(syncs[:5]))
+
+
+def mirror_path(mods, phase):
+    """Phase 16: per-iteration logging and `debug_mirror` held against the
+    kernel at atol 0, the logging cost, `no_recompile_guard` and `trace`."""
+    import tempfile
+
+    torch, lt, fused_mod, sm, _, _ = mods
+    from loik_tpu_torch.kernels.fused import solve_fused
+    from loik_tpu_torch.utils import debug_mirror, no_recompile_guard, trace
+
+    B, K = PATHS["flagship"]["B"], PATHS["flagship"]["K"]
+    dev = torch.device("cuda")
+    tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B, K)
+
+    def last_logged_rp(mirror):
+        rows = (mirror.iterations.long() - 1).clamp(min=0)
+        return mirror.log_rp.gather(0, rows[None])[0]
+
+    def mirrored(what, res, params_, problem_, warm=None, sample=None):
+        t0 = time.perf_counter()
+        m = debug_mirror(tree, params_, q, problem_, warm_state=warm, result=res,
+                         sample=sample, atol=0.0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = res.primal_residual if sample is None else res.primal_residual[sample]
+        ran = (m.iterations > 0)
+        if not torch.equal(last_logged_rp(m)[ran], want[ran]):
+            raise AssertionError(f"{what}: the last logged log_rp is not the reported residual")
+        log(f"    {what}: debug_mirror(atol=0.0) passed on {m.iterations.shape[0]} problems "
+            f"(flags, iterations, both residuals bit for bit; last log_rp = reported "
+            f"residual), logs {tuple(m.log_rp.shape)}, {ms:.1f} ms (host clock, synced)")
+        return m
+
+    # ---- the kernel's history: flagship float32 solve_fused
+    fused_mod.LAUNCHES = 0
+    res = solve_fused(tree, params, q, problem)
+    torch.cuda.synchronize()
+    log(f"[{phase}] flagship solve_fused B={B} check_interval={K}: {fused_mod.LAUNCHES} "
+        f"launch, mean iterations {float(res.iterations.double().mean()):.2f}")
+    if fused_mod.LAUNCHES != 1:
+        raise AssertionError("solve_fused did not launch the kernel once")
+    mirrored("flagship", res, params, problem)
+    longest = torch.topk(res.iterations, 64).indices
+    mirrored("the 64 longest-running problems (sample=)", res, params, problem,
+             sample=longest)
+
+    # ---- a warm tracking tick
+    tol = TRACKING["tol"]
+    pw = params.replace(tol_abs=tol, tol_rel=tol, warm_start=True, check_interval=1)
+    first = solve_fused(tree, pw, q, problem)
+    tick = problem.update_constraint(0, b=problem.b[0] * torch.cos(
+        torch.tensor(2 * torch.pi / TRACKING["T"], device=dev)))
+    warm = solve_fused(tree, pw, q, tick, warm_state=first.state)
+    mirrored("a warm tracking tick (tol 1e-4, check_interval 1)", warm, pw, tick,
+             warm=first.state)
+
+    # ---- the cost of logging on the eager loop, in turns (host-bound: the
+    # eager loop's time moves by tens of percent from call to call)
+    times = {False: [], True: []}
+    for turn in range(4):
+        for logging in ((False, True) if turn % 2 else (True, False)):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            lt.solve(tree, params.replace(logging=logging), q, problem)
+            end.record()
+            end.synchronize()
+            times[logging].append(start.elapsed_time(end))
+    plain_ms, logged_ms = (statistics.median(times[f][1:]) for f in (False, True))
+    log(f"    eager solve B={B}, in turns after a warm-up of each: "
+        f"{plain_ms:.3f} ms without logging, {logged_ms:.3f} ms with (CUDA events, "
+        f"median of 3): logging costs {logged_ms - plain_ms:.3f} ms "
+        f"({(logged_ms / plain_ms - 1) * 100:.1f}%); all: without "
+        + " ".join(f"{t:.1f}" for t in times[False]) + ", with "
+        + " ".join(f"{t:.1f}" for t in times[True]))
+
+    # ---- no_recompile_guard: silent on warm solves, fires on a new batch size
+    # the cache emptied first, so that what the guard sees at the new batch
+    # size is not served by segments earlier phases left behind
+    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    torch.cuda.empty_cache()
+    for _ in range(UNROLLED["guard_warmup"]):
+        solver.solve_refined(q, method="delta")
+    with no_recompile_guard() as events:
+        for _ in range(3):
+            solver.solve_refined(q, method="delta")
+        torch.cuda.synchronize()
+    q_big = tree.random_configuration(
+        (UNROLLED["guard_B"],), generator=torch.Generator(device=dev).manual_seed(1))
+    try:
+        with no_recompile_guard() as big:
+            solver.solve_refined(q_big, method="delta")
+            torch.cuda.synchronize()
+        raise AssertionError("no_recompile_guard did not fire on a new batch size")
+    except RuntimeError as err:
+        if "no_recompile_guard" not in str(err):
+            raise
+    log(f"    no_recompile_guard: {events.count} events over three warm solve_refined calls "
+        f"after {UNROLLED['guard_warmup']} warm-up calls; "
+        f"{big.count} ({sorted(set(big.names))}) over a first solve at "
+        f"B={UNROLLED['guard_B']}: fired")
+    if events.count:
+        raise AssertionError(f"no_recompile_guard: warm solves made events {events.names}")
+
+    # ---- trace(): every counted launch in the trace of a whole solve (the
+    # delta path, two-stage); the launches' device time read from it
+    kw = dict(method="two-stage", stage1_max_iter=TWO_STAGE["stage1_max_iter"],
+              stage2_max_iter=TWO_STAGE["stage2_max_iter"])
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, fn in (("delta", lambda: solver.solve_refined(q, method="delta")),
+                         ("two-stage", lambda: solver.solve_refined(q, **kw))):
+            d = os.path.join(tmp, what)
+            fused_mod.LAUNCHES = 0
+            with trace(d):
+                fn()
+            launches = fused_mod.LAUNCHES
+            files = os.listdir(d)
+            found, us, _ = trace_device_us(os.path.join(d, files[0]))
+            log(f"    trace() around one {what} solve_refined: {len(files)} file, {launches} "
+                f"launches counted, {found} fused_admm_kernel events in the trace, "
+                f"{us / 1e3:.3f} ms on the device")
+            if len(files) != 1 or not found:
+                raise AssertionError(f"trace(): the {what} trace does not name the kernel")
+    # the same two-stage launch re-run alone on the profiler, five sessions:
+    # the kernel's time from each session's trace and from key_averages()
+    _, _, captured = capture_launches(mods, lambda: solver.solve_refined(q, **kw))
+    tree_, params_, prob_, st_, bt = captured[0]
+    runs = [profiled(torch, lambda: fused_mod.fused_solve_loop(tree_, params_, prob_, st_, bt))
+            for _ in range(5)]
+    log("    the two-stage stage 1 launch re-run alone, 5 profiler sessions: launches in "
+        "the trace " + " ".join(str(r["launches"]) for r in runs) + ", kernel alone from "
+        "the trace " + " ".join(f"{r['kernel_us'] / 1e3:.3f}" for r in runs)
+        + " ms, from key_averages() " + " ".join(f"{r['kernel_avg_us'] / 1e3:.3f}" for r in runs)
+        + " ms")
+
+
 def frame_report(mods):
     """Per path: the shared memory of one problem's frame and of the block's
     copy of S, and the problems per block at the default tile."""
@@ -1337,6 +1648,12 @@ def main() -> None:
     kernels.append(clik_path(mods, 13))
     clock()
     kernels.append(two_stage_path(mods, 14))
+    clock()
+
+    # ---- 15, 16. the differentiable solve; logging and the mirror -------
+    unrolled_path(mods, 15)
+    clock()
+    mirror_path(mods, 16)
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

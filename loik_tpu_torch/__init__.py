@@ -10,13 +10,14 @@ device; on a CUDA device the whole ADMM loop runs as one hand-written kernel
 package never imports it or jax.
 """
 
-from . import parallel, spatial
+from . import parallel, spatial, utils
 from .api import DiffIkSolver
 from .model import KinematicTree, builders, load_urdf, make_tree, robots
 from .params import MuUpdateStrat, SolverParams
 from .problem import IkProblem, make_problem
 from .solver import solve
 from .solver.clik import ClikResult, solve_clik
+from .solver.diff import solve_unrolled
 from .solver.refine import solve_delta_duals, solve_delta_refined, solve_two_stage
 from .solver.state import SolveResult, SolverState
 from .solver.stream import StreamResult, solve_stream

@@ -89,18 +89,19 @@ def mixed_from_arrays(mp, device=None,
 def state_from_arrays(state, device=None,
                       dtype: Optional[torch.dtype] = None) -> SolverState:
     """A port SolverState from a `loik_tpu` SolverState: every field the
-    port has, bool and int32 fields kept exact, floating fields in
-    ``dtype`` (default: as given).  Per-iteration logs are not carried."""
+    port has, the per-iteration logs of a logged state included, bool and
+    int32 fields kept exact, floating fields in ``dtype`` (default: as
+    given)."""
     vals = {}
     for f in dataclasses.fields(SolverState):
         x = getattr(state, f.name, None)
-        if f.name.startswith("log_") or x is None:
-            continue
-        vals[f.name] = _tensor(x, device, dtype)
+        if x is not None:
+            vals[f.name] = _tensor(x, device, dtype)
     return SolverState(**vals)
 
 
 def state_to_numpy(st: SolverState) -> Dict[str, np.ndarray]:
-    """Every non-None field of a port state as a numpy array."""
+    """Every non-None field of a port state (the logs of a logged one
+    included) as a numpy array."""
     return {f.name: getattr(st, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(st) if getattr(st, f.name) is not None}

@@ -26,6 +26,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # the CUDA toolkit's default install prefix, the last place searched
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
+# nvcc runs in this process (`utils.no_recompile_guard` counts them)
+BUILDS = 0
 
 # -fmad=false: no multiply-add is contracted into an FMA, so the kernels
 # round operation for operation like their eager PyTorch versions (see the
@@ -86,6 +88,7 @@ def build_log() -> str:
 def build() -> str:
     """Compile the sources if the library for them does not exist yet;
     returns its path.  Raises RuntimeError with nvcc's output on failure."""
+    global BUILDS
     out = library_path()
     if os.path.exists(out):
         return out
@@ -96,6 +99,7 @@ def build() -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    BUILDS += 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

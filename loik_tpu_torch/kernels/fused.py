@@ -80,6 +80,9 @@ MAX_SMEM_BYTES = 232448
 # number of kernel launches in this process: a run can read it to show that
 # its main path went through the kernel
 LAUNCHES = 0
+# set by `utils.debug_nans`: the kernel writes its state through pointers
+# no dispatch mode sees, so `fused_solve_loop` checks the state it returns
+CHECK_NANS = False
 
 # state fields that the kernel writes (everything except liMi and the logs),
 # in the order of the kernel's pointer array (csrc/fused_admm.cu::LoikPtr)
@@ -225,7 +228,8 @@ def fused_eligibility(tree, params: SolverParams, B: int, batch_tile: int,
     non-uniform dof counts on its own)."""
     if params.logging:
         return False, ("params.logging is set — the fused kernel has no "
-                       "per-iteration log arrays")
+                       "per-iteration log arrays (use utils.debug_mirror "
+                       "to log a batch on the eager loop)")
     if params.verbose:
         return False, ("params.verbose is set — the fused kernel prints "
                        "nothing per iteration")
@@ -419,7 +423,9 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
     if params.logging:
         raise ValueError("fused path does not support logging")
     if params.verbose:
-        raise ValueError("fused path does not support verbose console mode")
+        raise ValueError(
+            "fused path does not support verbose console mode (the kernel "
+            "cannot print per iteration); use solver.solve")
     if batch_tile is None:
         from ..solver.refine import default_batch_tile
 
@@ -443,7 +449,20 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
         return _solve_loop(tree, prob, params, st)
     if st.vis.device.type != "cuda":
         raise ValueError(f"fused_solve_loop: no kernel for device {st.vis.device}")
-    return _launch(tree, params, prob, st, batch_tile)
+    out = _launch(tree, params, prob, st, batch_tile)
+    if CHECK_NANS:
+        _check_nans(out)
+    return out
+
+
+def _check_nans(st: SolverState) -> None:
+    """`utils.debug_nans`' check of a launch's output state: raises
+    FloatingPointError naming the first floating field holding a NaN."""
+    for f in dataclasses.fields(st):
+        x = getattr(st, f.name)
+        if isinstance(x, torch.Tensor) and x.is_floating_point() and bool(x.isnan().any()):
+            raise FloatingPointError(
+                f"debug_nans: NaN in the fused kernel's output field {f.name}")
 
 
 def with_S_all(tree, prob: PreparedProblem, dtype) -> PreparedProblem:

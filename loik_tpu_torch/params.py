@@ -41,11 +41,18 @@ class SolverParams:
     keep_mu_on_warm_start: bool = False  # carry adapted mu across warm solves
                                          # (reference always resets to mu0,
                                          # task-solver-base.hpp:82)
-    logging: bool = False                 # per-iteration SolveInfo arrays
-                                         # (not ported yet: the solvers of
-                                         # this package raise when it is set)
-    verbose: bool = False                # console banner mode (not ported
-                                         # yet; raises like logging)
+    logging: bool = False                 # return per-iteration SolveInfo arrays
+    verbose: bool = False                # host-visible console mode: print an
+                                         # iteration banner + convergence /
+                                         # infeasibility warnings (the
+                                         # reference's verbose_ stream,
+                                         # loik-loid.hpp:501-506, loik-loid.hxx:
+                                         # 320,345,362; batched here, so the
+                                         # banner reports batch aggregates).
+                                         # Each banner reads the device, so it
+                                         # synchronises.  Eager loop only —
+                                         # like logging, refused by the fused
+                                         # kernel.
     check_feasibility: bool = True       # run infeasibility certificates; the
                                          # delta-refinement stage disables them
                                          # (degenerate in delta space)
@@ -64,7 +71,10 @@ class SolverParams:
                                          # multiples of K, mu adapts once per
                                          # K, and the effective iteration
                                          # budget rounds max_iter down to a
-                                         # multiple of K.
+                                         # multiple of K.  With logging,
+                                         # skipped iterations' log slots stay
+                                         # NaN (the same convention as frozen
+                                         # problems).
 
     def __post_init__(self):
         if self.mu_update_strat != MuUpdateStrat.DEFAULT:

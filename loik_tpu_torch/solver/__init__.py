@@ -1,4 +1,5 @@
 from .clik import ClikResult, solve_clik
+from .diff import solve_unrolled
 from .refine import solve_delta_duals, solve_delta_refined, solve_two_stage
 from .solve import fwd_pass_init, prepare_problem, solve, solve_from_fk
 from .state import PreparedProblem, SolverState, SolveResult, init_state
@@ -10,6 +11,7 @@ __all__ = [
     "solve_delta_refined",
     "solve_two_stage",
     "solve_clik",
+    "solve_unrolled",
     "ClikResult",
     "solve_from_fk",
     "solve_stream",

@@ -65,12 +65,12 @@ def _heal(conv: torch.Tensor, st: SolverState, cold: SolverState) -> SolverState
     """The state with every per-problem field of the problems that did not
     converge replaced by the cold state's.  Every such field has the batch
     as its LAST axis, so the (B,) mask broadcasts over the rest; the scalar
-    `it` and the absent logs stay."""
+    `it` and any logs a warm state brought (the cold state has none) stay."""
     upd = {}
     for f in dataclasses.fields(st):
-        x = getattr(st, f.name)
-        if isinstance(x, torch.Tensor) and x.ndim:
-            upd[f.name] = torch.where(conv, x, getattr(cold, f.name))
+        x, c = getattr(st, f.name), getattr(cold, f.name)
+        if isinstance(x, torch.Tensor) and x.ndim and c is not None:
+            upd[f.name] = torch.where(conv, x, c)
     return dataclasses.replace(st, **upd)
 
 
@@ -116,11 +116,18 @@ def solve_clik(tree, params: SolverParams, q0, target_R, target_p,
     reported by ``reached`` instead (an unreachable pose stalls at its
     closest approach).
 
+    ``params.logging`` raises ValueError; ``params.verbose`` prints each
+    eager tick's banners and, as the kernel cannot print, is refused on the
+    kernel path like logging (`kernels.fused.resolve_fused`).
+
     Returns a ClikResult; ``reached`` = final |pos err| < pos_tol and
     |rot err| < rot_tol.
     """
-    if params.logging or params.verbose:
-        raise NotImplementedError("params.logging / params.verbose are not ported yet")
+    if params.logging:
+        raise ValueError(
+            "solve_clik keeps no per-tick logs (a closed loop would carry one "
+            "(max_iter, B) log per field and tick); log a tick with "
+            "DiffIkSolver.solve_tracking or utils.debug_mirror instead")
     if steps < 1:
         raise ValueError(f"steps must be at least 1; got {steps}")
     q0 = _as_batch(tree, q0)

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from ..params import SolverParams
 from ..problem import IkProblem, validate_problem
 from . import batched_spatial as bsp
-from .state import PreparedProblem, SolverState, SolveResult, init_state
+from .state import (LOG_FIELDS, PreparedProblem, SolverState, SolveResult,
+                    init_state, nan_logs)
 
 
 @contextlib.contextmanager
@@ -515,9 +516,8 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
 
         # --- merge (freeze finished problems) ---------------------------
         merged = {k: torch.where(active, v, getattr(st, k)) for k, v in new.items()}
-        return dataclasses.replace(
-            st,
-            **merged,
+        updates = dict(
+            merged,
             mu=mu_next,
             mu_eq=mu_eq_next,
             mu_ineq=mu_ineq_next,
@@ -532,6 +532,45 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
             ),
             it=i,
         )
+        if params.logging and max_iter > 0:
+            # row i-1 of each log, written out of place at an index that
+            # stays on the device; i > max_iter happens only on the first
+            # body call when K > max_iter, where loik_tpu's scatter drops
+            # the write: here NaN goes into a row that is still NaN
+            row = (i - 1).clamp(max=max_iter - 1).reshape(1).long()
+            logged = active & (i <= max_iter)
+
+            def logset(arr, val):
+                return arr.index_copy(
+                    0, row, torch.where(logged, val, float("nan"))[None])
+
+            for name, val in (
+                ("log_rp", new["primal_residual"]),
+                ("log_rd", new["dual_residual"]),
+                ("log_mu", st.mu),
+                # per-block components + penalty split + tail diagnostics
+                # (LoikSolverInfo parity, loik-loid.hpp:98-121)
+                ("log_rp_task", checks["primal_residual_task"]),
+                ("log_rp_slack", checks["primal_residual_slack"]),
+                ("log_rd_v", checks["dual_residual_v"]),
+                ("log_rd_nu", checks["dual_residual_nu"]),
+                ("log_mu_eq", st.mu_eq),
+                ("log_mu_ineq", st.mu_ineq),
+                ("log_in_tail", st.in_tail.to(st.mu.dtype)),
+                ("log_dx", new["delta_x_inf"]),
+                ("log_dz", new["delta_z_inf"]),
+            ):
+                updates[name] = logset(getattr(st, name), val)
+        if params.verbose:
+            # iteration banner (the reference's verbose_ stream prints one
+            # per iteration, loik-loid.hpp:501-506; batched -> aggregates
+            # over the problems still active).  Reads the device.
+            rp_max = torch.where(active, new["primal_residual"], 0.0).max()
+            rd_max = torch.where(active, new["dual_residual"], 0.0).max()
+            print(f"[loik] iter {int(i)}: primal res {float(rp_max):.3e}, "
+                  f"dual res {float(rd_max):.3e}, "
+                  f"running {int(running_next.sum())}", flush=True)
+        return dataclasses.replace(st, **updates)
 
     return body
 
@@ -541,10 +580,6 @@ def _solve_loop(tree, prob: PreparedProblem, params: SolverParams, st: SolverSta
     masked termination (Solve, loik-loid-optimized.hpp:368-455 +
     InfeasibilityTailSolve :266-319).  The loop condition reads the running
     mask on the host once per body call."""
-    if params.logging or params.verbose:
-        raise NotImplementedError(
-            "params.logging / params.verbose are not ported yet"
-        )
     body = make_loop_body(tree, prob, params)
     while bool(st.running.any()):
         st = body(st)
@@ -593,6 +628,8 @@ def _reset_state(tree, params: SolverParams, st: SolverState, dtype) -> SolverSt
     if not params.warm_start:
         upd.update({name: torch.zeros_like(getattr(st, name)) for name in
                     ("vis", "fis", "nu", "z", "w", "yis", "Aty", "fdpa", "stfw")})
+    if params.logging:
+        upd.update(nan_logs(params.max_iter, B, dtype, dev))
     return dataclasses.replace(st, **upd)
 
 
@@ -620,7 +657,25 @@ def _result(tree, st: SolverState) -> SolveResult:
         primal_residual=st.primal_residual,
         dual_residual=st.dual_residual,
         state=st,
+        **{name: getattr(st, name) for name in LOG_FIELDS},
     )
+
+
+def _announce(st: SolverState) -> None:
+    """The verbose terminal notices (the reference's verbose_ convergence
+    message and warnings, loik-loid.hxx:320 converged / :345 infeasible /
+    :362 max-iter), batched: counts over the batch.  Reads the device."""
+    n_conv = int(st.converged.sum())
+    n_pinf = int(st.primal_infeasible.sum())
+    n_unconv = int((~st.converged & ~st.primal_infeasible).sum())
+    print(f"[loik] solve finished: {n_conv} converged, max iterations "
+          f"{int(st.iterations.max())}", flush=True)
+    if n_pinf > 0:
+        print(f"[loik] WARNING: {n_pinf} problem(s) certified primal infeasible",
+              flush=True)
+    if n_unconv > 0:
+        print(f"[loik] WARNING: {n_unconv} problem(s) hit max_iter without "
+              "converging", flush=True)
 
 
 def _as_batch(tree, q) -> torch.Tensor:
@@ -672,12 +727,15 @@ def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
                 tol_scale_primal=torch.as_tensor(tol_scales[0], dtype=dtype, device=dev),
                 tol_scale_dual=torch.as_tensor(tol_scales[1], dtype=dtype, device=dev))
         if warm_state is None:
-            st = init_state(tree, B, problem.num_constraints, dtype, dev)
+            st = init_state(tree, B, problem.num_constraints, dtype, dev,
+                            params.max_iter, params.logging)
         else:
             st = warm_state
         st = _reset_state(tree, params, st, dtype)
         st = dataclasses.replace(st, liMi_R=liMi_R, liMi_p=liMi_p)
         st = loop(tree, prob, params, st)
+    if params.verbose:
+        _announce(st)
     return _result(tree, st)
 
 

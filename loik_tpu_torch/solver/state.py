@@ -92,8 +92,12 @@ class SolverState:
 
     it: torch.Tensor              # () int32 loop iteration counter
 
-    # per-iteration logs (max_iter, B): not ported yet (params.logging
-    # raises), so always None; named as in loik_tpu
+    # optional per-iteration logs (max_iter, B), allocated only when
+    # params.logging — the batched analog of LoikSolverInfo's per-iteration
+    # lists (loik-loid.hpp:40-121); NaN marks iterations a problem did not
+    # run, and with check_interval K > 1 the iterations between checks.
+    # Tail-solve lists are these logs masked by log_in_tail (1.0 = a tail
+    # iteration).  log_dx / log_dz are |delta x|_inf / |delta z|_inf.
     log_rp: Optional[torch.Tensor] = None
     log_rd: Optional[torch.Tensor] = None
     log_mu: Optional[torch.Tensor] = None
@@ -108,8 +112,22 @@ class SolverState:
     log_dz: Optional[torch.Tensor] = None
 
 
+LOG_FIELDS = (
+    "log_rp", "log_rd", "log_mu", "log_rp_task", "log_rp_slack",
+    "log_rd_v", "log_rd_nu", "log_mu_eq", "log_mu_ineq", "log_in_tail",
+    "log_dx", "log_dz",
+)
+
+
+def nan_logs(max_iter: int, B: int, dtype: torch.dtype, device) -> dict:
+    """Every log field as a fresh (max_iter, B) NaN tensor."""
+    return {name: torch.full((max_iter, B), float("nan"), dtype=dtype, device=device)
+            for name in LOG_FIELDS}
+
+
 def init_state(tree, B: int, num_constraints: int, dtype: torch.dtype,
-               device=None) -> SolverState:
+               device=None, max_iter: int = 0, logging: bool = False) -> SolverState:
+    """A zero state; with ``logging`` also the (max_iter, B) NaN logs."""
     N, K = tree.njoints, tree.nv_max
     dev = torch.device(device) if device is not None else tree.device
 
@@ -135,6 +153,7 @@ def init_state(tree, B: int, num_constraints: int, dtype: torch.dtype,
         primal_residual=inf(), dual_residual=inf(),
         delta_x_inf=zeros(B), delta_z_inf=zeros(B),
         it=zeros(dt=torch.int32),
+        **(nan_logs(max_iter, B, dtype, dev) if logging else {}),
     )
 
 
@@ -153,7 +172,7 @@ class SolveResult:
     primal_residual: torch.Tensor    # (B,)
     dual_residual: torch.Tensor      # (B,)
     state: SolverState               # full final state (warm start / inspection)
-    # per-iteration logs: always None until logging is ported
+    # per-iteration logs (max_iter, B) when params.logging, else None
     log_rp: Optional[torch.Tensor] = None
     log_rd: Optional[torch.Tensor] = None
     log_mu: Optional[torch.Tensor] = None

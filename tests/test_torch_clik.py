@@ -195,7 +195,7 @@ def test_clik_rejects_mismatched_problem_and_logging():
     with pytest.raises(ValueError, match="reach\\(\\) needs"):
         lt.DiffIkSolver(tree, lt.SolverParams(), (3, 6)).reach(q0, torch.eye(3),
                                                                torch.zeros(3), link=6)
-    with pytest.raises(NotImplementedError, match="logging"):
+    with pytest.raises(ValueError, match="keeps no per-tick logs.*debug_mirror"):
         lt.solve_clik(tree, lt.SolverParams(logging=True), q0, torch.eye(3), torch.zeros(3), 6)
     with pytest.raises(ValueError, match="steps must be"):
         lt.solve_clik(tree, lt.SolverParams(), q0, torch.eye(3), torch.zeros(3), 6, steps=0)

@@ -46,7 +46,9 @@ def test_the_scan_covers_the_package():
             "loik_tpu_torch/parallel/__init__.py", "loik_tpu_torch/parallel/mixed.py",
             "loik_tpu_torch/solver/stream.py", "loik_tpu_torch/solver/clik.py",
             "loik_tpu_torch/parallel/multistart.py",
-            "loik_tpu_torch/model/kinematics.py"} <= names
+            "loik_tpu_torch/model/kinematics.py", "loik_tpu_torch/solver/diff.py",
+            "loik_tpu_torch/utils/__init__.py", "loik_tpu_torch/utils/checkpoint.py",
+            "loik_tpu_torch/utils/observability.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

@@ -521,3 +521,50 @@ def test_multistart_delta_on_card_launches_twice_per_batch():
     assert fused.LAUNCHES == n0 + 2
     assert res.found and bool((res.error[:-1] <= res.error[1:]).all())
     assert bool(torch.isfinite(res.error).all()) and float(res.error.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check_interval", [1, 8])
+def test_debug_mirror_of_a_kernel_solve_at_atol_0_on_card(check_interval):
+    """`utils.debug_mirror` re-runs a `solve_fused` result on the eager loop
+    with logging and holds flags, iterations and both residuals to it bit
+    for bit (atol 0): the logs describe the solve the kernel ran."""
+    from loik_tpu_torch.kernels.fused import solve_fused
+    from loik_tpu_torch.utils import debug_mirror
+
+    _need_card()
+    tree, _, problem, params, q = chip_smoke.config(
+        lt, torch, "flagship", torch.float32, torch.device("cuda"), 2048, check_interval)
+    n0 = fused.LAUNCHES
+    res = solve_fused(tree, params, q, problem)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == n0 + 1
+    mirror = debug_mirror(tree, params, q, problem, result=res, atol=0.0)
+    assert fused.LAUNCHES == n0 + 1
+    assert mirror.log_rp.shape == (params.max_iter, 2048) and mirror.log_rp.is_cuda
+    last = mirror.log_rp.gather(0, (mirror.iterations.long() - 1)[None])[0]
+    assert torch.equal(last, res.primal_residual)
+
+
+@pytest.mark.cuda
+def test_solve_unrolled_on_card_equals_cpu_float64():
+    """The differentiable solve on the card and on the CPU copy of its
+    inputs, float64: iterations equal, nu within 1e-10, and the gradient of
+    sum(nu^2) with respect to q within 1e-8 relative (sin and cos of the
+    kinematics round differently on the two devices)."""
+    _need_card()
+    outs = []
+    for device in ("cuda", "cpu"):
+        tree, _, problem, params, q = chip_smoke.config(
+            lt, torch, "flagship", torch.float64, torch.device("cuda"), 256, 1)
+        tree = tree.to(device) if device == "cpu" else tree
+        problem = problem.replace(**{f: getattr(problem, f).to(device) for f in
+                                     ("H_ref", "v_ref", "A", "b", "lb", "ub")})
+        q = q.to(device).requires_grad_(True)
+        res = lt.solve_unrolled(tree, params, q, problem, num_iters=40)
+        g, = torch.autograd.grad((res.nu ** 2).sum(), q)
+        outs.append((res.nu.detach().cpu(), g.cpu(), res.iterations.cpu()))
+    (nu_c, g_c, it_c), (nu_h, g_h, it_h) = outs
+    assert torch.equal(it_c, it_h)
+    torch.testing.assert_close(nu_c, nu_h, rtol=0, atol=1e-10)
+    torch.testing.assert_close(g_c, g_h, rtol=1e-8, atol=1e-10)

@@ -104,8 +104,8 @@ def test_solve_single_q_and_validation():
         lt.solve(tt, lt.SolverParams(), tt.neutral(), tp.replace(lb=tp.ub + 1))
     with pytest.raises(ValueError, match="out of range"):
         lt.make_problem(tt, (7,))
-    with pytest.raises(NotImplementedError, match="logging"):
-        lt.solve(tt, lt.SolverParams(logging=True), tt.neutral(), tp)
+    logged = lt.solve(tt, lt.SolverParams(max_iter=50, logging=True), tt.neutral(), tp)
+    assert logged.log_rp.shape == (50, 1) and res.log_rp is None
 
 
 def _golden_problem(trace, tree):
