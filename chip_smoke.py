@@ -5,7 +5,8 @@
 
 Eight main paths through the fused ADMM kernel
 (`loik_tpu_torch/kernels/csrc/fused_admm.cu`), then the differentiable solve
-and the logged mirror of a kernel solve (phases 15-16).  Three are the
+and the logged mirror of a kernel solve (phases 15-16), then the scale-out
+and surface paths (phase 17).  Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
 tol 1e-6, whose two float32 stages each run the kernel:
@@ -139,7 +140,30 @@ Phases (any failure raises, so the script exits nonzero):
      `solve_refined` calls and firing on a first solve at B = 65536;
      `trace()` naming the kernel around a delta and a two-stage solve (its
      events against the launches counted, their device time), and the
-     two-stage stage-1 launch re-run alone in five profiler sessions.
+     two-stage stage-1 launch re-run alone in five profiler sessions;
+ 17. scale-out and the rest of the surface, on the flagship's task at
+     B = 16384 in float32: `parallel.solve_sharded` over `make_mesh()` and
+     over 4 repetitions of the card against `solve` on the same inputs
+     (phase 5's outcome budget, the differences logged, 0 expected) and
+     `convergence_metrics` against its numpy recomputation; one batch of
+     16384 seeds through `solve_multistart(mesh=<2 repetitions of the card>,
+     solve_fn=<delta-duals, fused="require">, k=8)`: the launch count rises
+     by 2 per distinct device of the mesh (a device solves all its shards as
+     one batch), phase 12's ranking invariants, the top-k errors those of
+     the unsharded call on the same generator seed within 2e-5, both timed
+     (CUDA events, median of 5), each launch against its plain version with
+     its bound (the `kernels` entry `multistart_sharded`);
+     `parallel.distributed` at world size 1 on NCCL over a localhost TCP
+     port chosen at run time: `solve_global` and `global_metrics` equal to
+     `convergence_metrics`; the numpy oracle (`loik_tpu_torch.oracle`)
+     against the kernel's float64 instantiation on panda at the oracle
+     fixture's configuration, ur5 neutral and 16 random panda_arm
+     configurations: flags and iterations equal, nu within 1e-9;
+     `load_urdf_native` of talos (floating base) on the card, leaf for leaf
+     equal to `load_urdf`, and the talos main path on it equal to the one on
+     the Python tree bit for bit; `entry.entry()` once and
+     `entry.dryrun_multichip(torch.cuda.device_count())`; every
+     `examples/torch/0N_*.py` as a concurrent subprocess, exit code 0.
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -187,6 +211,15 @@ TWO_STAGE = dict(stage1_max_iter=32, stage2_max_iter=4, mobile_B=4096)
 # segments over the next three
 UNROLLED = dict(B=16384, num_iters=60, B_second=1024, f32_rel_bound=2e-2, guard_B=65536,
                 guard_warmup=3)
+# the scale-out and surface paths (phase 17): the flagship's task at full
+# batch, split over meshes of 1 and `shards` shards (repetitions of the
+# card), the multistart batch over `ms_shards`, the oracle on its fixtures
+# and `oracle_random` random flagship problems, each example with a limit
+SCALE_OUT = dict(B=16384, shards=4, ms_shards=2, k=8, oracle_random=16, example_timeout=300)
+# the oracle fixture's explicit panda configuration (tests/test_oracle.py::PANDA_Q,
+# from the reference's tests/loik-loid.cpp:214)
+PANDA_Q = (-2.79684649, -0.55090374, 0.424806, -1.21112304, -0.89856966,
+           0.79726132, -0.07125267, 0.13154589, 0.13171856)
 
 
 def log(msg: str) -> None:
@@ -1017,9 +1050,31 @@ def tracking_path(mods, phase):
     return entries
 
 
+def check_ranked(mods, tree, problem, links, batches, n_conv, k):
+    """Every multistart batch: ranked, inf past num_converged, each finite
+    slot's float64 task residual recomputed from (q, nu) at most 1e-5 and
+    equal to its error within 1e-5."""
+    torch, sm, bsp = mods[0], mods[3], mods[5]
+    worst = worst_gap = 0.0
+    tree64 = tree.astype(torch.float64)
+    for r, nc in zip(batches, n_conv):
+        err = r.error.double()
+        fin = torch.isfinite(err)
+        if int(fin.sum()) != min(k, nc) or not bool((err[1:] >= err[:-1]).all()):
+            raise AssertionError("multistart: slots not ranked or not inf past num_converged")
+        v = link_velocities(sm, bsp, tree64, r.q.double()[fin], r.nu.double()[fin])
+        task = (v[links[0]] @ problem.A[0].double().T - problem.b[0].double()).abs().amax(-1)
+        worst = max(worst, float(task.max()))
+        worst_gap = max(worst_gap, float((task - err[fin]).abs().max()))
+    log(f"    finite slots: f64 task residual max {worst:.3e}, |residual - error| max "
+        f"{worst_gap:.3e}; best error of the last batch {float(batches[-1].error[0]):.3e}")
+    if not (worst <= 1e-5 and worst_gap <= 1e-5):
+        raise AssertionError("multistart: a ranked seed misses its task")
+
+
 def multistart_path(mods, phase):
     """Phase 12: multistart over >= 1e5 seeds with the delta-duals solve_fn."""
-    torch, lt, fused_mod, sm, rf, bsp = mods
+    torch, lt, _, _, rf, _ = mods
     B, k = MULTISTART["B"], MULTISTART["k"]
     n_batches = -(-MULTISTART["seeds"] // B)
     dev = torch.device("cuda")
@@ -1041,23 +1096,7 @@ def multistart_path(mods, phase):
     if launches != 2 * n_batches or len(captured) != 2 * n_batches:
         raise AssertionError(f"expected {2 * n_batches} kernel launches, got {launches}")
 
-    # every batch: ranked, inf past num_converged, each finite slot's float64
-    # task residual recomputed from (q, nu)
-    worst = worst_gap = 0.0
-    tree64 = tree.astype(torch.float64)
-    for r, nc in zip(batches, n_conv):
-        err = r.error.double()
-        fin = torch.isfinite(err)
-        if int(fin.sum()) != min(k, nc) or not bool((err[1:] >= err[:-1]).all()):
-            raise AssertionError("multistart: slots not ranked or not inf past num_converged")
-        v = link_velocities(sm, bsp, tree64, r.q.double()[fin], r.nu.double()[fin])
-        task = (v[links[0]] @ problem.A[0].double().T - problem.b[0].double()).abs().amax(-1)
-        worst = max(worst, float(task.max()))
-        worst_gap = max(worst_gap, float((task - err[fin]).abs().max()))
-    log(f"    finite slots: f64 task residual max {worst:.3e}, |residual - error| max "
-        f"{worst_gap:.3e}; best error of the last batch {float(batches[-1].error[0]):.3e}")
-    if not (worst <= 1e-5 and worst_gap <= 1e-5):
-        raise AssertionError("multistart: a ranked seed misses its task")
+    check_ranked(mods, tree, problem, links, batches, n_conv, k)
 
     # the first batch's seeds again: a prefix, kernel against eager
     n = MULTISTART["prefix"]
@@ -1549,6 +1588,250 @@ def mirror_path(mods, phase):
         + " ms")
 
 
+def scale_out_path(mods, phase):
+    """Phase 17: the sharded solve, the sharded multistart (the kernel
+    path), one-rank NCCL, the oracle against the kernel's float64
+    instantiation, the native URDF loader, the entry points and the
+    examples (run beside `surface_checks`).  Returns the `kernels` entry of
+    the sharded multistart."""
+    import numpy as np
+
+    from loik_tpu_torch.parallel import sharding
+
+    torch, lt, fused_mod, _, rf, _ = mods
+    t_phase = time.time()
+    B, k = SCALE_OUT["B"], SCALE_OUT["k"]
+    dev = torch.device("cuda")
+    tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B,
+                                             PATHS["flagship"]["K"])
+
+    def once_ms(fn):
+        """(fn(), its CUDA-event time in ms): one run, no warm-up."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # ---- solve_sharded on one card and on repetitions of it --------------
+    fused_mod.LAUNCHES = 0
+    ref = lt.solve(tree, params, q, problem)        # also the warm-up
+    _, ms_whole = once_ms(lambda: lt.solve(tree, params, q, problem))
+    launches = fused_mod.LAUNCHES
+    log(f"[{phase}] solve (the eager loop, {launches} launches) flagship B={B} float32: "
+        f"{ms_whole:.3f} ms (CUDA events, one run after a warm-up)")
+    for mesh in (sharding.make_mesh(), sharding.make_mesh(["cuda:0"] * SCALE_OUT["shards"])):
+        res, ms_mesh = once_ms(lambda: sharding.solve_sharded(tree, params, q, problem, mesh))
+        same = all(torch.equal(getattr(res, n), getattr(ref, n))
+                   for n in ("nu", "converged", "iterations", "primal_residual"))
+        log(f"[{phase}] solve_sharded over {mesh.size} shard(s) "
+            f"{[str(d) for d in mesh.devices]}: {ms_mesh:.3f} ms ({ms_mesh / ms_whole:.3f}x "
+            f"solve; one run), result on {res.nu.device}, equal to solve bit for bit: {same}")
+        outcome_budget(res, ref, B, "solve on the same inputs")
+        m = sharding.convergence_metrics(res)
+        conv = res.converged.cpu().numpy()
+        it = res.iterations.cpu().numpy().astype(np.float64)
+        want = {"num_converged": int(conv.sum()),
+                "num_primal_infeasible": int(res.primal_infeasible.cpu().numpy().sum()),
+                "mean_iterations": it.sum() / it.size, "max_iterations": int(it.max()),
+                "mean_iterations_converged": it[conv].sum() / max(int(conv.sum()), 1)}
+        got = {key: m[key].item() for key in want}
+        if got != want:
+            raise AssertionError(f"convergence_metrics {got} != numpy {want}")
+    log(f"    convergence_metrics equal their numpy recomputation: {got}")
+
+    # ---- multistart over a mesh: the kernel path --------------------------
+    def delta(fused):
+        return lambda t, p, q_, pr: rf.solve_delta_duals(
+            t, p, q_, pr, stage1_max_iter=MULTISTART["stage1_max_iter"], fused=fused)
+
+    mesh2 = sharding.make_mesh(["cuda:0"] * SCALE_OUT["ms_shards"])
+
+    def multistart(mesh_, seed=0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return lt.parallel.solve_multistart(tree, params, problem, gen, B, mesh=mesh_,
+                                            solve_fn=delta("require"), k=k)
+
+    res_m, launches_m, captured = capture_launches(mods, lambda: multistart(mesh2))
+    n_conv = int(res_m.num_converged)
+    n_dev = len(set(mesh2.devices))
+    log(f"[{phase}] multistart {B} seeds over {mesh2.size} shards on {n_dev} device(s) "
+        f"(delta-duals solve_fn, fused='require', top {k}): kernel launches {launches_m}, "
+        f"converged {n_conv}")
+    if launches_m != 2 * n_dev or len(captured) != 2 * n_dev:
+        raise AssertionError(f"expected {2 * n_dev} kernel launches, got {launches_m}")
+    check_ranked(mods, tree, problem, links, [res_m], [n_conv], k)
+    res_u = multistart(None)
+    err_m, err_u = res_m.error.double(), res_u.error.double()
+    fin = torch.isfinite(err_u)
+    gap = float((err_m[fin] - err_u[fin]).abs().max())
+    log(f"    against the unsharded call on the same generator seed: converged "
+        f"{int(res_u.num_converged)}, top-{k} errors max |diff| {gap:.3e}, same seeds "
+        f"ranked: {torch.equal(res_m.q, res_u.q)}")
+    if not (torch.equal(torch.isfinite(err_m), fin) and gap <= 2e-5):
+        raise AssertionError("sharded multistart: top-k errors differ from the unsharded call")
+    ms_m = cuda_median_ms(torch, lambda: multistart(mesh2))
+    ms_u = cuda_median_ms(torch, lambda: multistart(None))
+    log(f"    per batch of {B}: over {mesh2.size} shards {ms_m:.3f} ms, unsharded "
+        f"{ms_u:.3f} ms (CUDA events, median of 5)")
+    rep = stage_report(mods, captured, what="launch")
+    entry_ms = kernels_entry("multistart_sharded", launches_m, rep)
+    entry_ms["seeds_per_s"] = B / ms_m * 1e3
+
+    # ---- the examples, as a user runs them: concurrent subprocesses, -----
+    # started here so that they run beside the untimed checks below
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(os.path.join(root, "examples", "torch", f)
+                   for f in os.listdir(os.path.join(root, "examples", "torch"))
+                   if f.startswith("0") and f.endswith(".py"))
+    if len(paths) != 7:
+        raise AssertionError(f"expected examples 01-07, found {paths}")
+    t_ex = time.perf_counter()
+    procs = [(p, subprocess.Popen([sys.executable, p], cwd=root, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)) for p in paths]
+    try:
+        surface_checks(mods, phase, tree, params, problem, q, ref)
+        failed = []
+        for p, proc in procs:
+            out = proc.communicate(timeout=SCALE_OUT["example_timeout"])[0]
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            log(f"    {os.path.relpath(p, root)}: exit {proc.returncode} at "
+                f"{time.perf_counter() - t_ex:.1f} s; {last}")
+            if proc.returncode != 0:
+                failed.append((p, out[-3000:]))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError("examples failed:\n" + "\n".join(f"{p}:\n{o}" for p, o in failed))
+    log(f"    phase {phase} took {time.time() - t_phase:.1f} s")
+    return entry_ms
+
+
+def surface_checks(mods, phase, tree, params, problem, q, ref):
+    """Phase 17's untimed checks: one-rank NCCL, the oracle against the
+    kernel's float64 instantiation, the native loader, the entry points."""
+    import socket
+
+    import numpy as np
+
+    from loik_tpu_torch.entry import dryrun_multichip, entry
+    from loik_tpu_torch.model.native import load_urdf_native
+    from loik_tpu_torch.oracle import OracleSolver
+    from loik_tpu_torch.parallel import distributed as dist
+    from loik_tpu_torch.parallel import sharding
+
+    torch, lt, fused_mod = mods[:3]
+    dev = torch.device("cuda")
+
+    # ---- one-rank NCCL --------------------------------------------------
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.initialize(f"localhost:{port}", num_processes=1, process_id=0)
+    try:
+        init_s = time.perf_counter() - t0
+        backend = torch.distributed.get_backend()
+        res_g = dist.solve_global(tree, params, q, problem)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gm = dist.global_metrics(res_g)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist.global_metrics(res_g)
+        second_s = time.perf_counter() - t0
+        cm = {key: v.item() for key, v in sharding.convergence_metrics(res_g).items()}
+        log(f"[{phase}] torch.distributed world 1 ({backend}, tcp://localhost:{port}): "
+            f"initialize {init_s:.3f} s, first global_metrics (its collectives make the "
+            f"communicator) {first_s:.3f} s, second {second_s:.3f} s (host clock); "
+            f"solve_global rows {tuple(res_g.nu.shape)} equal to solve: "
+            f"{torch.equal(res_g.nu, ref.nu)}; global_metrics {gm}")
+        if backend != "nccl" or gm != cm:
+            raise AssertionError(f"NCCL: backend {backend}, global {gm} != local {cm}")
+    finally:
+        dist.shutdown()
+
+    # ---- the oracle against the kernel's float64 instantiation -----------
+    cases = []
+    rng = np.random.default_rng(1)
+    for robot, b3, qs in (("panda", 0.5, [PANDA_Q]), ("ur5", 0.5, None),
+                          ("panda_arm", 0.2, rng.uniform(-np.pi, np.pi,
+                                                         (SCALE_OUT["oracle_random"], 7)))):
+        t = lt.robots.get(robot, device=dev)
+        qs = t.neutral()[None] if qs is None else torch.tensor(qs, dtype=torch.float64)
+        b = torch.zeros((1, 6), dtype=torch.float64)
+        b[0, 2] = b3
+        prob = lt.make_problem(t, (t.njoints - 1,), b=b, lb=-4.0 * torch.ones(t.nv),
+                               ub=4.0 * torch.ones(t.nv))
+        cases.append((robot, t, prob, qs.to(dev)))
+    oparams = lt.SolverParams(max_iter=200, tol_abs=1e-6, tol_rel=1e-6, mu=0.1,
+                              mu_equality_scale_factor=1e5)
+    worst, n_prob, n_launch = 0.0, 0, 0
+    for robot, t, prob, qs in cases:
+        fused_mod.LAUNCHES = 0
+        res = fused_mod._fused_body(oparams, None, t, qs, prob, None)
+        torch.cuda.synchronize()
+        n_launch += fused_mod.LAUNCHES
+        for i in range(qs.shape[0]):
+            orc = OracleSolver(t, oparams).solve(qs[i], prob)
+            if (bool(res.converged[i]) != orc.converged
+                    or bool(res.primal_infeasible[i]) != orc.primal_infeasible
+                    or int(res.iterations[i]) != orc.iterations):
+                raise AssertionError(
+                    f"oracle vs kernel f64, {robot} problem {i}: converged "
+                    f"{bool(res.converged[i])}/{orc.converged}, iterations "
+                    f"{int(res.iterations[i])}/{orc.iterations}")
+            worst = max(worst, float(np.abs(res.nu[i].cpu().numpy() - orc.nu).max()))
+            n_prob += 1
+    log(f"[{phase}] oracle vs the kernel's float64 instantiation ({n_launch} launches): "
+        f"{n_prob} problems (panda at the fixture q, ur5 neutral, "
+        f"{SCALE_OUT['oracle_random']} random panda_arm), flags and iterations equal, nu "
+        f"max |diff| {worst:.3e}")
+    if n_launch != len(cases) or worst > 1e-9:
+        raise AssertionError(f"oracle vs kernel: {n_launch} launches, nu {worst}")
+
+    # ---- the native URDF loader ------------------------------------------
+    talos_urdf = os.path.join(os.path.dirname(lt.model.robots.__file__), "assets", "talos.urdf")
+    t0 = time.perf_counter()
+    t_nat = load_urdf_native(talos_urdf, dtype=torch.float32, floating_base=True, device=dev)
+    load_s = time.perf_counter() - t0
+    t_py = lt.robots.talos("float32", device=dev)
+    for name in ("placement_R", "placement_p", "axis", "velocity_limit"):
+        if not torch.equal(getattr(t_nat, name), getattr(t_py, name)):
+            raise AssertionError(f"native talos: leaf {name} differs from load_urdf's")
+    if (t_nat.parents, t_nat.jtypes, t_nat.joint_names) != (
+            t_py.parents, t_py.jtypes, t_py.joint_names):
+        raise AssertionError("native talos: topology differs from load_urdf's")
+    tb, tK = PATHS["talos"]["B"], PATHS["talos"]["K"]
+    _, tlinks, tproblem, tparams, tq = config(lt, torch, "talos", torch.float32, dev, tb, tK)
+    outs = []
+    for t in (t_py, t_nat):
+        solver = lt.DiffIkSolver(t, tparams, tlinks, problem=tproblem, fused="require")
+        outs.append(capture_launches(mods, lambda: solver.solve_refined(tq, method="delta")))
+    bits = all(torch.equal(getattr(outs[0][0], n), getattr(outs[1][0], n))
+               for n in ("nu", "converged", "iterations", "primal_residual", "dual_residual"))
+    log(f"[{phase}] load_urdf_native(talos, floating base) on {t_nat.device} in "
+        f"{load_s:.3f} s (build included): every leaf equal to load_urdf's; the talos main "
+        f"path (B={tb}) on the native tree equals the Python tree's bit for bit: {bits} "
+        f"({outs[0][1]} + {outs[1][1]} launches)")
+    if not bits or outs[0][1] != 2 or outs[1][1] != 2:
+        raise AssertionError("native talos: the main path differs from the Python tree's")
+
+    # ---- the entry points -------------------------------------------------
+    fn, (qs,) = entry()
+    (nu, conv, iters), launches_e, _ = capture_launches(mods, lambda: fn(qs))
+    log(f"[{phase}] entry(): B={qs.shape[0]} on {qs.device}, {launches_e} launch(es), "
+        f"converged {int(conv.sum())}, iterations max {int(iters.max())}")
+    if launches_e != 1 or not bool(torch.isfinite(nu).all()):
+        raise AssertionError("entry(): expected one launch and finite nu")
+    summary = dryrun_multichip(torch.cuda.device_count())
+    log(f"    dryrun_multichip({torch.cuda.device_count()}): {json.dumps(summary)}")
+
+
 def frame_report(mods):
     """Per path: the shared memory of one problem's frame and of the block's
     copy of S, and the problems per block at the default tile."""
@@ -1654,6 +1937,10 @@ def main() -> None:
     unrolled_path(mods, 15)
     clock()
     mirror_path(mods, 16)
+    clock()
+
+    # ---- 17. scale-out, the oracle, the native loader, entry, examples ---
+    kernels.append(scale_out_path(mods, 17))
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 import warnings
 import weakref
 from typing import Optional
@@ -78,8 +79,10 @@ _NACC = 16
 MAX_SMEM_BYTES = 232448
 
 # number of kernel launches in this process: a run can read it to show that
-# its main path went through the kernel
+# its main path went through the kernel (a sharded solve launches from one
+# host thread per card, hence the lock)
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 # set by `utils.debug_nans`: the kernel writes its state through pointers
 # no dispatch mode sees, so `fused_solve_loop` checks the state it returns
 CHECK_NANS = False
@@ -341,7 +344,7 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     ``lib``: a host build of the kernel source bound with `_bind`, for a
     rehearsal on CPU tensors (tools/rehearse_kernel.py); it runs in the call
     and is not counted as a launch.  None: the CUDA library, on the current
-    stream of the tensors' device."""
+    stream of the tensors' device, with that device made current."""
     global LAUNCHES
     dtype, dev = st.vis.dtype, st.vis.device
     B = st.vis.shape[-1]
@@ -400,14 +403,21 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     cfg.clinks[:NC] = prob.constraint_links
 
     fn = lib.loik_fused_admm_f32 if dtype == torch.float32 else lib.loik_fused_admm_f64
-    stream = 0 if rehearsal else torch.cuda.current_stream(dev).cuda_stream
-    err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
+    if rehearsal:
+        err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(0))
+    else:
+        # the C side sets the kernel's shared-memory limit and launches on
+        # the CURRENT device: make the tensors' card current for the call
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(
             "fused ADMM kernel launch failed: "
             f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
     if not rehearsal:
-        LAUNCHES += 1
+        with _LAUNCHES_LOCK:
+            LAUNCHES += 1
     return dataclasses.replace(st, **out)
 
 

@@ -5,20 +5,22 @@ Port of `loik_tpu.parallel.multistart`.  Differential IK is local; global IK
 restarts it from many random configurations and keeps the best converged
 solutions.  One diff-IK solve per seed scores how well the commanded
 end-effector velocity can be realized from that configuration; downstream
-planners integrate `q + dt nu`.  The port runs on one device: loik_tpu's
-`mesh` argument (the seed axis sharded over devices) waits for the
-multi-device port (ROADMAP queue 1 item 14).
+planners integrate `q + dt nu`.  With a ``mesh`` the seed axis is split
+over its devices (`sharding.run_sharded`) and the solutions gathered on the
+first before the ranking.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..params import SolverParams
 from ..problem import IkProblem
 from ..solver.solve import solve
+from .sharding import Mesh, run_sharded
 
 
 def task_error(res, problem: IkProblem) -> torch.Tensor:
@@ -30,8 +32,8 @@ def task_error(res, problem: IkProblem) -> torch.Tensor:
     vis = res.vis                                                   # (B, N, 6)
     v_c = torch.stack([vis[:, c] for c in problem.constraint_links], dim=1)
     dtype = torch.promote_types(vis.dtype, problem.A.dtype)
-    A = problem.A.to(dtype)
-    b = problem.b.to(dtype)
+    A = problem.A.to(vis.device, dtype)
+    b = problem.b.to(vis.device, dtype)
     r = (A @ v_c.to(dtype)[..., None])[..., 0] - b                 # (B, NC, 6)
     return r.abs().amax(dim=(1, 2))
 
@@ -59,13 +61,19 @@ class MultistartResult:
 
 def multistart_from_configs(tree, params: SolverParams, problem: IkProblem,
                             qs: torch.Tensor, k: int = 1,
-                            solve_fn=None) -> MultistartResult:
+                            solve_fn=None, mesh: Optional[Mesh] = None) -> MultistartResult:
     """Solve from the seed configurations ``qs`` (S, nq) and rank them:
     task error per converged seed, inf for the rest, the k smallest first
-    (`torch.topk`).  Nothing is read back to the host."""
+    (`torch.topk`).  With a ``mesh`` the seeds are split over its devices
+    (S divisible by its size) and the ranking runs on the first.  Nothing
+    is read back to the host."""
     if not 1 <= k <= qs.shape[0]:
         raise ValueError(f"k must be in [1, num_seeds]; got k={k}")
-    res = (solve_fn or solve)(tree, params, qs, problem)
+    if mesh is None:
+        res = (solve_fn or solve)(tree, params, qs, problem)
+    else:
+        res = run_sharded(tree, params, qs, problem, mesh, solve_fn=solve_fn)
+        qs = qs.to(mesh.devices[0])
     err = torch.where(res.converged, task_error(res, problem), float("inf"))
     neg_top, idx = torch.topk(-err, k)
     return MultistartResult(
@@ -75,8 +83,8 @@ def multistart_from_configs(tree, params: SolverParams, problem: IkProblem,
 
 
 def solve_multistart(tree, params: SolverParams, problem: IkProblem,
-                     generator, num_seeds: int, solve_fn=None,
-                     k: int = 1) -> MultistartResult:
+                     generator, num_seeds: int, mesh: Optional[Mesh] = None,
+                     solve_fn=None, k: int = 1) -> MultistartResult:
     """Solve from ``num_seeds`` random configurations drawn from
     ``generator`` (a `torch.Generator` on the tree's device, or None for
     torch's default one) by `tree.random_configuration`; return the k best.
@@ -84,12 +92,19 @@ def solve_multistart(tree, params: SolverParams, problem: IkProblem,
     solve_fn(tree, params, qs, problem) replaces the solver (e.g. the
     delta-duals refinement for tol-1e-6 scoring, which runs the fused
     kernel on the GPU); the default is the batched `solve`.  A restart loop
-    calls this once per batch of seeds with the same generator.
+    calls this once per batch of seeds with the same generator.  With a
+    ``mesh`` (num_seeds divisible by its size) the seeds, all drawn from
+    the one generator as without it, are split over its devices, solved per
+    shard and gathered for the ranking: the same generator state gives the
+    same seeds with or without a mesh.
 
     Ranking considers ONLY converged seeds: slots beyond ``num_converged``
     carry ``error == inf`` and arbitrary q/nu; when no seed converges,
     ``found`` is False and the caller should resample."""
     if not 1 <= k <= num_seeds:
         raise ValueError(f"k must be in [1, num_seeds]; got k={k}")
+    if mesh is not None and num_seeds % mesh.size:
+        raise ValueError(
+            f"num_seeds {num_seeds} not divisible by mesh size {mesh.size}")
     qs = tree.random_configuration((int(num_seeds),), generator=generator)
-    return multistart_from_configs(tree, params, problem, qs, k, solve_fn)
+    return multistart_from_configs(tree, params, problem, qs, k, solve_fn, mesh)

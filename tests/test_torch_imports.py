@@ -1,4 +1,5 @@
-"""loik_tpu_torch and chip_smoke.py never import jax, jaxlib or loik_tpu:
+"""loik_tpu_torch, its examples (examples/torch/) and chip_smoke.py never
+import jax, jaxlib or loik_tpu:
 the machine with the card has no jax, and the port is held against
 loik_tpu, not built on it.  The scan reads the sources (AST), because
 `sys.modules` cannot tell: the test process imports jax for the parity
@@ -18,6 +19,9 @@ def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "loik_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    torch_examples = os.path.join(REPO, "examples", "torch")
+    out += [os.path.join(torch_examples, f) for f in os.listdir(torch_examples)
+            if f.endswith(".py")]
     return sorted(out)
 
 
@@ -48,7 +52,16 @@ def test_the_scan_covers_the_package():
             "loik_tpu_torch/parallel/multistart.py",
             "loik_tpu_torch/model/kinematics.py", "loik_tpu_torch/solver/diff.py",
             "loik_tpu_torch/utils/__init__.py", "loik_tpu_torch/utils/checkpoint.py",
-            "loik_tpu_torch/utils/observability.py"} <= names
+            "loik_tpu_torch/utils/observability.py",
+            "loik_tpu_torch/parallel/sharding.py", "loik_tpu_torch/parallel/distributed.py",
+            "loik_tpu_torch/model/native.py", "loik_tpu_torch/oracle/__init__.py",
+            "loik_tpu_torch/oracle/solver.py", "loik_tpu_torch/entry.py"} <= names
+    examples = {n for n in names if n.startswith("examples/torch/")}
+    assert examples == {
+        "examples/torch/01_basic_solve.py", "examples/torch/02_tracking_loop.py",
+        "examples/torch/03_multichip_multistart.py", "examples/torch/04_mixed_fleet.py",
+        "examples/torch/05_mimic_gripper.py", "examples/torch/06_differentiable_ik.py",
+        "examples/torch/07_position_ik.py"}
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
