@@ -6,7 +6,10 @@
 Eight main paths through the fused ADMM kernel
 (`loik_tpu_torch/kernels/csrc/fused_admm.cu`), then the differentiable solve
 and the logged mirror of a kernel solve (phases 15-16), then the scale-out
-and surface paths (phase 17).  Three are the
+and surface paths (phase 17), all launched eagerly under
+`utils.disable_graphs()` (several phases hook Python functions that a CUDA
+graph's replay never calls); then phase 18, the same entry points as
+captured CUDA graphs, the default on the card.  Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
 tol 1e-6, whose two float32 stages each run the kernel:
@@ -163,7 +166,29 @@ Phases (any failure raises, so the script exits nonzero):
      equal to `load_urdf`, and the talos main path on it equal to the one on
      the Python tree bit for bit; `entry.entry()` once and
      `entry.dryrun_multichip(torch.cuda.device_count())`; every
-     `examples/torch/0N_*.py` as a concurrent subprocess, exit code 0.
+     `examples/torch/0N_*.py` as a concurrent subprocess (graphs on), exit
+     code 0; the sharded multistart's launches alone from the trace of a
+     whole call;
+ 18. the compiled entry points as CUDA graphs (`utils.graphs`, the default
+     on the card): the flagship's, solo12's and talos'
+     `solve_refined(method="delta")` at phase 5's, 7's and 8's sizes, the
+     mixed super-batch 512 + 512 (`MixedPadded.solve_packed` with the
+     delta-duals solve), one multistart batch of 16384 seeds scored by the
+     delta-duals solve, the tracking stream `solve_stream` from a settled
+     warm state at B = 16384 and 256 (T = 100), `solve_tracking` at B =
+     16384 and `reach` (B = 16384, 80 ticks), each: the first call's time
+     with its capture, the graph's pool (`memory_reserved` across the
+     capture) and static input bytes; a repeated call replays and launches
+     the kernel 2 (each solve), 100, 1 and 80 times (counted on replay)
+     with 0 host synchronisations; graphed equal to the same call launched
+     eagerly (`disable_graphs()`) on every tensor of the result, bit for
+     bit; the flagship certified as in phase 5; a second call with other
+     inputs leaves the first result unchanged; graphed and eager-launched
+     times in turns (CUDA events, median of 5; `solve_tracking`:
+     synchronous p50 over 40 ticks) and, for the stream and CLIK, the
+     device's idle share on the profiler's trace of one replayed run (the
+     gaps between its device operations over their span).  The `kernels`
+     entries of those paths carry these numbers under "graph".
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -365,8 +390,9 @@ def profiled(torch, fn):
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         launches, kernel_us, device_us = trace_device_us(path)
+        busy_us, span_us = trace_busy_span_us(path)
     return dict(wall_ms=wall, kernel_us=kernel_us, kernel_avg_us=avg_us,
-                device_us=device_us, launches=launches)
+                device_us=device_us, launches=launches, busy_us=busy_us, span_us=span_us)
 
 
 def trace_device_us(path):
@@ -379,6 +405,28 @@ def trace_device_us(path):
             if e.get("cat") == "kernel" and "fused_admm_kernel" in e.get("name", "")]
     return (len(ours), sum(e.get("dur", 0) for e in ours),
             sum(e.get("dur", 0) for e in device))
+
+
+def trace_busy_span_us(path):
+    """From a Chrome trace of torch.profiler: (the time at least one kernel,
+    copy or set ran on the device, their intervals merged; the span from
+    the first one's start to the last one's end), us.  Their difference is
+    the time the device sat idle between operations."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "ts" in e)
+    if not spans:
+        return 0.0, 0.0
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy, max(b for _, b in spans) - spans[0][0]
 
 
 def kernel_device_ms(torch, fn):
@@ -1678,6 +1726,14 @@ def scale_out_path(mods, phase):
     rep = stage_report(mods, captured, what="launch")
     entry_ms = kernels_entry("multistart_sharded", launches_m, rep)
     entry_ms["seeds_per_s"] = B / ms_m * 1e3
+    # the launches alone from the trace of a whole sharded call (the
+    # profiler loses launches in sessions of one launch)
+    whole = profiled(torch, lambda: multistart(mesh2))
+    seen_all = whole["launches"] == launches_m
+    entry_ms["kernel_alone_ms"] = whole["kernel_us"] / 1e3 if seen_all else None
+    log(f"    the {launches_m} launches alone from the trace of one whole sharded call: "
+        + (f"{whole['kernel_us'] / 1e3:.3f} ms" if seen_all else
+           f"not measured (the profiler saw {whole['launches']} of them)"))
 
     # ---- the examples, as a user runs them: concurrent subprocesses, -----
     # started here so that they run beside the untimed checks below
@@ -1832,6 +1888,319 @@ def surface_checks(mods, phase, tree, params, problem, q, ref):
     log(f"    dryrun_multichip({torch.cuda.device_count()}): {json.dumps(summary)}")
 
 
+def leaves(x):
+    """The tensors of a result, in field order (`utils.graphs`' order)."""
+    from loik_tpu_torch.utils import graphs
+
+    out = []
+    graphs._flatten(x, out)
+    return out
+
+
+def bits_equal(torch, got, want):
+    """Names (by position) of the tensors of ``got`` that differ from
+    ``want`` in any bit (NaNs in the same places count as equal)."""
+    a, b = leaves(got), leaves(want)
+    if len(a) != len(b):
+        return [f"{len(a)} tensors against {len(b)}"]
+    return [str(i) for i, (x, y) in enumerate(zip(a, b))
+            if x.shape != y.shape or x.dtype != y.dtype
+            or not torch.equal(x.nan_to_num(), y.nan_to_num())
+            or not torch.equal(x.isnan(), y.isnan())]
+
+
+def in_turns(torch, fns, reps=5):
+    """Median CUDA-event time of each of ``fns`` over ``reps`` rounds, the
+    functions run in turns within a round (one warm-up round first)."""
+    times = [[] for _ in fns]
+    for r in range(reps + 1):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if r:
+                times[i].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def graph_path(mods, phase):
+    """Phase 18: the compiled entry points as captured CUDA graphs (the
+    default on the card) against the same calls launched eagerly under
+    `disable_graphs()`.  Returns, per `kernels` entry name, its graph
+    numbers."""
+    from loik_tpu_torch.utils import graphs
+
+    torch, lt, fused_mod, sm, _, bsp = mods
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    out = {}
+
+    def first_call(what, fn):
+        """fn() as the first call of its key: (result, host-clock seconds,
+        the capture's record)."""
+        n = len(graphs.CAPTURES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if len(graphs.CAPTURES) != n + 1:
+            raise AssertionError(f"{what}: {len(graphs.CAPTURES) - n} captures, expected 1")
+        cap = graphs.CAPTURES[-1]
+        log(f"    {what}: first call {secs:.3f} s ({cap.tag}: warm-up and capture "
+            f"{cap.seconds:.3f} s), graph pool {cap.pool_bytes / 2**20:.1f} MiB "
+            f"(memory_reserved across the capture), static inputs "
+            f"{cap.static_bytes / 2**20:.2f} MiB, {cap.launches} kernel launch(es) a replay")
+        return res, secs, cap
+
+    def repeated(what, fn, want_launches):
+        """fn() as a repeated call: its launches and host synchronisations."""
+        torch.cuda.synchronize()
+        fused_mod.LAUNCHES = 0
+        res, syncs = count_syncs(torch, fn)
+        torch.cuda.synchronize()
+        launches = fused_mod.LAUNCHES
+        log(f"    {what}: a repeated call launched the kernel {launches} times (replayed), "
+            f"host synchronisations {len(syncs)}")
+        if launches != want_launches:
+            raise AssertionError(f"{what}: {launches} launches, expected {want_launches}")
+        if syncs:
+            raise AssertionError(f"{what} synchronises the host: " + "; ".join(syncs[:5]))
+        return res, launches
+
+    def same_bits(what, got, want):
+        bad = bits_equal(torch, got, want)
+        log(f"    {what}: graphed against eager-launched, {len(leaves(got))} tensors, "
+            f"{len(bad)} differ")
+        if bad:
+            raise AssertionError(f"{what}: graphed and eager-launched results differ in "
+                                 f"tensors {bad[:10]}")
+
+    def unaliased(what, first, again):
+        """``first`` (a result already cloned into ``kept``) is unchanged
+        after ``again()``, a call with other inputs, whose result differs."""
+        kept = [t.clone() for t in leaves(first)]
+        second = again()
+        torch.cuda.synchronize()
+        moved = [i for i, (a, b) in enumerate(zip(leaves(first), kept))
+                 if not torch.equal(a.nan_to_num(), b.nan_to_num())]
+        differs = bool(bits_equal(torch, first, second))
+        log(f"    {what}: a second call with other inputs left the first result unchanged: "
+            f"{not moved}; its result differs: {differs}")
+        if moved or not differs:
+            raise AssertionError(f"{what}: results alias between calls ({moved[:5]})")
+
+    def graph_idle(what, fn, T):
+        """The device's idle share over ONE traced, replayed run of T ticks:
+        the gaps between its kernels, copies and sets over the span from the
+        first one's start to the last one's end."""
+        prof = profiled(torch, fn)
+        if not prof["span_us"]:
+            log(f"    {what}: the profiler saw no device time: idle share not measured")
+            return None
+        busy, span = prof["busy_us"] / 1e3, prof["span_us"] / 1e3
+        log(f"    {what}: on the profiler's trace of one replayed run the device was busy "
+            f"{busy / T:.4f} ms a tick of a {span / T:.4f} ms span (first device operation "
+            f"to last; the block's wall {prof['wall_ms'] / T:.4f} ms a tick): idle share "
+            f"{1 - busy / span:.4f}; kernel alone "
+            + ("not measured" if not prof["kernel_us"] else
+               f"{prof['kernel_us'] / 1e3 / T:.4f} ms a tick"))
+        return 1 - busy / span
+
+    def held(name, what, fn, other, launches, eager=None):
+        """One path as a graph: its first call, a repeated call (launches
+        counted, no host synchronisation), the eager-launched call's bits
+        (``eager`` or ``fn`` under `disable_graphs()`), a second call with
+        other inputs (``other``) that leaves the first result alone, and the
+        graphed and eager-launched times in turns.  Returns the repeated
+        call's result."""
+        eager = eager or fn
+        _, cap_s, cap = first_call(what, fn)
+        res, n = repeated(what, fn, launches)
+        with graphs.disable_graphs():
+            want = eager()
+        same_bits(what, res, want)
+        unaliased(what, res, other)
+
+        def eager_launched():
+            with graphs.disable_graphs():
+                eager()
+
+        g_ms, e_ms = in_turns(torch, [fn, eager_launched])
+        log(f"    {what}: graphed {g_ms:.3f} ms, eager-launched {e_ms:.3f} ms (CUDA events, "
+            "median of 5, in turns)")
+        out[name] = dict(graph_ms=g_ms, eager_launched_ms=e_ms, capture_s=cap_s,
+                         pool_bytes=cap.pool_bytes, graph_launches=n)
+        return res
+
+    # ---- the flagship, solve_refined(method="delta") --------------------
+    B, K = PATHS["flagship"]["B"], PATHS["flagship"]["K"]
+    tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B, K)
+    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+
+    def flagship(qq=q):
+        return solver.solve_refined(qq, method="delta")
+
+    log(f"[{phase}] flagship B={B} check_interval={K}, solve_refined(method='delta'):")
+    res = held("flagship", "flagship", flagship, lambda: flagship(q.flip(0)), 2)
+    certify(mods, tree, problem, links, q, res)
+    log(f"    flagship: {B * float(res.converged.double().mean()) / out['flagship']['graph_ms'] * 1e3:.0f} "
+        "converged solves/s graphed")
+
+    # ---- the legged robots, the mixed super-batch, a multistart batch ----
+    for name in ("solo12", "talos"):
+        B, K = PATHS[name]["B"], PATHS[name]["K"]
+        tree, links, problem, params, q = config(lt, torch, name, torch.float32, dev, B, K)
+        legged = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+        log(f"[{phase}] {name} B={B} check_interval={K}, solve_refined(method='delta'):")
+        held(name, name, lambda qq=q: legged.solve_refined(qq, method="delta"),
+             lambda: legged.solve_refined(q.flip(0), method="delta"), 2)
+
+    def delta(**kw):
+        return lambda t, p, qq, pr: lt.solve_delta_duals(t, p, qq, pr, fused="require", **kw)
+
+    B, K = PATHS["mixed"]["B"], PATHS["mixed"]["K"]
+    mp, groups, params = mixed_setup(lt, torch, torch.float32, B // 2, K)
+    qs = [g[1] for g in groups]
+    log(f"[{phase}] mixed {B // 2} ur5 + {B // 2} panda_arm check_interval={K}, "
+        "MixedPadded.solve_packed with the delta-duals solve:")
+    held("mixed", "mixed", lambda qq=qs: mp.solve_packed(params, qq, solve_fn=delta()),
+         lambda: mp.solve_packed(params, [x.flip(0) for x in qs], solve_fn=delta()), 2)
+
+    B, k = MULTISTART["B"], MULTISTART["k"]
+    tree, links, problem, params, _ = config(lt, torch, "flagship", torch.float32, dev, B,
+                                             PATHS["flagship"]["K"])
+
+    def multistart(seed=0):
+        return lt.parallel.solve_multistart(
+            tree, params, problem, torch.Generator(device=dev).manual_seed(seed), B, k=k,
+            solve_fn=delta(stage1_max_iter=MULTISTART["stage1_max_iter"]))
+
+    # the flagship's graph has the batch's key (tree, params, B): drop it, so
+    # that the batch's first call captures
+    graphs.clear_graphs()
+    log(f"[{phase}] multistart one batch of {B} seeds (top {k}), the delta-duals solve:")
+    held("multistart", "multistart", multistart, lambda: multistart(1), 2)
+
+    # ---- the tracking stream, track_scan ---------------------------------
+    T, tol = TRACKING["T"], TRACKING["tol"]
+    sweep = torch.zeros((T, 6), dtype=torch.float32, device=dev)
+    sweep[:, 2] = 0.2 * torch.cos(2 * torch.pi * torch.arange(T, device=dev) / T)
+    for B in TRACKING["fleets"]:
+        tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev,
+                                                 B, 1)
+        params = params.replace(tol_abs=tol, tol_rel=tol, warm_start=True)
+        ticker = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+        for _ in range(TRACKING["settle"]):            # settle the duals (graphed ticks)
+            ticker.solve_tracking(q, links[0], b=problem.b[0])
+        warm = ticker.state
+
+        def stream(b_seq=sweep):
+            return lt.solve_stream(tree, params, q, problem, 0, b_seq, warm_state=warm,
+                                   fused="require")
+
+        log(f"[{phase}] tracking stream B={B} T={T} tol {tol:g}, solve_stream from a "
+            "settled warm state:")
+        _, cap_s, cap = first_call(f"stream B={B}", stream)
+        res, launches = repeated(f"stream B={B}", stream, T)
+        with graphs.disable_graphs():
+            want = stream()
+        same_bits(f"stream B={B}", res, want)
+        unaliased(f"stream B={B}", res, lambda: stream(0.5 * sweep))
+
+        def eager_stream():
+            with graphs.disable_graphs():
+                stream()
+
+        t0 = time.perf_counter()
+        stream()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        g_ms, e_ms = in_turns(torch, [stream, eager_stream])
+        log(f"    stream B={B}: graphed {g_ms / T:.4f} ms a tick (host enqueue "
+            f"{host / T:.4f}), eager-launched {e_ms / T:.4f} ms a tick (CUDA events around "
+            "the stream, median of 5, in turns)")
+        out[f"tracking_B{B}"] = dict(
+            graph_ms_per_tick=g_ms / T, eager_launched_ms_per_tick=e_ms / T,
+            host_enqueue_ms_per_tick=host / T, capture_s=cap_s, pool_bytes=cap.pool_bytes,
+            graph_launches=launches,
+            idle_share=graph_idle(f"stream B={B}", stream, T))
+
+        if B != TRACKING["fleets"][0]:
+            continue
+        # ---- solve_tracking, one graphed tick per call ------------------
+        n = 10
+        kern = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+        eager = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+        got = [kern.solve_tracking(q, links[0], b=b) for b in sweep[:n]]
+        with graphs.disable_graphs():
+            want = [eager.solve_tracking(q, links[0], b=b) for b in sweep[:n]]
+        same_bits(f"solve_tracking B={B}, {n} ticks", got, want)
+        _, launches = repeated(f"solve_tracking B={B}",
+                               lambda: kern.solve_tracking(q, links[0], b=sweep[n]), 1)
+        lat = {"graphed": [], "eager-launched": []}
+        for b in sweep[n + 1:n + 41]:
+            for label, solver_, off in (("graphed", kern, False), ("eager-launched", eager, True)):
+                with graphs.disable_graphs(off):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    solver_.solve_tracking(q, links[0], b=b)
+                    torch.cuda.synchronize()
+                    lat[label].append((time.perf_counter() - t0) * 1e3)
+        log(f"    solve_tracking B={B}, synchronous p50 over 40 ticks in turns: graphed "
+            f"{statistics.median(lat['graphed']):.4f} ms, eager-launched "
+            f"{statistics.median(lat['eager-launched']):.4f} ms (host clock)")
+        out[f"tracking_B{B}"]["solve_tracking_p50_ms"] = statistics.median(lat["graphed"])
+        out[f"tracking_B{B}"]["eager_launched_solve_tracking_p50_ms"] = statistics.median(
+            lat["eager-launched"])
+
+    # ---- the closed loop, reach -----------------------------------------
+    B, T = CLIK["B"], CLIK["steps"]
+    tree, q0, tR, tp, ee = clik_inputs(lt, torch, B)
+    params = lt.SolverParams(max_iter=CLIK["max_iter"], tol_abs=CLIK["tol"],
+                             tol_rel=CLIK["tol"], check_interval=1)
+    run = dict(dt=CLIK["dt"], gain=CLIK["gain"])
+    solver = lt.DiffIkSolver(tree, params, (ee,), fused="require")
+
+    def reach(target_p=tp):
+        return solver.reach(q0, tR, target_p, steps=T, **run)
+
+    log(f"[{phase}] clik reach B={B} T={T} tol {CLIK['tol']:g}:")
+    _, cap_s, cap = first_call("clik", reach)
+    res, launches = repeated("clik", reach, T)
+    with graphs.disable_graphs():
+        want = reach()
+    same_bits("clik", res, want)
+    unaliased("clik", res, lambda: reach(tp + 0.01))
+
+    def eager_reach():
+        with graphs.disable_graphs():
+            reach()
+
+    t0 = time.perf_counter()
+    reach()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    g_ms, e_ms = in_turns(torch, [reach, eager_reach])
+    log(f"    clik: graphed {g_ms / T:.4f} ms a tick (host enqueue {host / T:.4f}), "
+        f"eager-launched {e_ms / T:.4f} ms a tick (CUDA events around the run, median of 5, "
+        f"in turns); reached {float(res.reached.double().mean()):.4f}")
+    out["clik"] = dict(
+        graph_ms_per_tick=g_ms / T, eager_launched_ms_per_tick=e_ms / T,
+        host_enqueue_ms_per_tick=host / T, capture_s=cap_s, pool_bytes=cap.pool_bytes,
+        graph_launches=launches, idle_share=graph_idle("clik", reach, T))
+
+    held = graphs.cached_graphs()
+    graphs.clear_graphs()
+    torch.cuda.empty_cache()
+    log(f"    {len(graphs.CAPTURES)} captures in this process, {held} graphs held before "
+        f"clear_graphs(); phase {phase} took {time.time() - t_phase:.1f} s")
+    return out
+
+
 def frame_report(mods):
     """Per path: the shared memory of one problem's frame and of the block's
     copy of S, and the problems per block at the default tile."""
@@ -1864,6 +2233,7 @@ def main() -> None:
     from loik_tpu_torch.kernels import fused as fused_mod
     from loik_tpu_torch.solver import batched_spatial as bsp
     from loik_tpu_torch.solver import refine as rf
+    from loik_tpu_torch.utils import graphs
     import loik_tpu_torch.solver.solve  # noqa: F401  (the module, not the function)
 
     sm = sys.modules["loik_tpu_torch.solver.solve"]
@@ -1879,68 +2249,77 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     log(card)
 
-    # ---- 2. build -------------------------------------------------------
-    fresh = not os.path.exists(_build.library_path())
-    t0 = time.time()
-    path = _build.build()
-    build_s = time.time() - t0
-    log(f"[2] kernel library {os.path.relpath(path)} "
-        f"({'built' if fresh else 'cached'} in {build_s:.1f} s, "
-        f"nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("    " + line.strip())
-    frame_report(mods)
-    clock()
+    # phases 2-17 launch eagerly, as they did before the entry points ran
+    # as CUDA graphs: several hook Python functions that a replay never calls
+    with graphs.disable_graphs():
+        # ---- 2. build -------------------------------------------------------
+        fresh = not os.path.exists(_build.library_path())
+        t0 = time.time()
+        path = _build.build()
+        build_s = time.time() - t0
+        log(f"[2] kernel library {os.path.relpath(path)} "
+            f"({'built' if fresh else 'cached'} in {build_s:.1f} s, "
+            f"nvcc {' '.join(_build.NVCC_FLAGS)})")
+        for line in _build.build_log().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("    " + line.strip())
+        frame_report(mods)
+        clock()
 
-    # ---- 3, 4. the flagship's instantiation vs the eager loop ------------
-    for K in (1, 8):
-        double_check(mods, 3, "flagship", 1024, K)
-    float_lockstep(mods, 4, "flagship", PATHS["flagship"]["B"])
-    clock()
+        # ---- 3, 4. the flagship's instantiation vs the eager loop ------------
+        for K in (1, 8):
+            double_check(mods, 3, "flagship", 1024, K)
+        float_lockstep(mods, 4, "flagship", PATHS["flagship"]["B"])
+        clock()
 
-    # ---- 5. the flagship main path ---------------------------------------
-    kernels = [main_path(mods, "flagship", 5)]
-    clock()
+        # ---- 5. the flagship main path ---------------------------------------
+        kernels = [main_path(mods, "flagship", 5)]
+        clock()
 
-    # ---- 6. multi-dof joints and tall trees vs the eager loop ------------
-    double_check(mods, 6, "solo12", 1024, 1)
-    double_check(mods, 6, "solo12", 1024, 4)
-    double_check(mods, 6, "talos", 256, 1)
-    float_lockstep(mods, 6, "solo12", PATHS["solo12"]["B"])
-    float_lockstep(mods, 6, "talos", PATHS["talos"]["B"])
-    clock()
+        # ---- 6. multi-dof joints and tall trees vs the eager loop ------------
+        double_check(mods, 6, "solo12", 1024, 1)
+        double_check(mods, 6, "solo12", 1024, 4)
+        double_check(mods, 6, "talos", 256, 1)
+        float_lockstep(mods, 6, "solo12", PATHS["solo12"]["B"])
+        float_lockstep(mods, 6, "talos", PATHS["talos"]["B"])
+        clock()
 
-    # ---- 7, 8. the legged robots' main paths -----------------------------
-    kernels.append(main_path(mods, "solo12", 7))
-    kernels.append(main_path(mods, "talos", 8))
-    clock()
+        # ---- 7, 8. the legged robots' main paths -----------------------------
+        kernels.append(main_path(mods, "solo12", 7))
+        kernels.append(main_path(mods, "talos", 8))
+        clock()
 
-    # ---- 9, 10. per-problem subspaces and the mixed super-batch ----------
-    subspaces_check(mods, 9)
-    kernels.append(mixed_path(mods, 10))
-    clock()
+        # ---- 9, 10. per-problem subspaces and the mixed super-batch ----------
+        subspaces_check(mods, 9)
+        kernels.append(mixed_path(mods, 10))
+        clock()
 
-    # ---- 11. warm-started tracking ---------------------------------------
-    kernels += tracking_path(mods, 11)
-    clock()
+        # ---- 11. warm-started tracking ---------------------------------------
+        kernels += tracking_path(mods, 11)
+        clock()
 
-    # ---- 12-14. the planner and position-level paths --------------------
-    kernels.append(multistart_path(mods, 12))
-    clock()
-    kernels.append(clik_path(mods, 13))
-    clock()
-    kernels.append(two_stage_path(mods, 14))
-    clock()
+        # ---- 12-14. the planner and position-level paths --------------------
+        kernels.append(multistart_path(mods, 12))
+        clock()
+        kernels.append(clik_path(mods, 13))
+        clock()
+        kernels.append(two_stage_path(mods, 14))
+        clock()
 
-    # ---- 15, 16. the differentiable solve; logging and the mirror -------
-    unrolled_path(mods, 15)
-    clock()
-    mirror_path(mods, 16)
-    clock()
+        # ---- 15, 16. the differentiable solve; logging and the mirror -------
+        unrolled_path(mods, 15)
+        clock()
+        mirror_path(mods, 16)
+        clock()
 
-    # ---- 17. scale-out, the oracle, the native loader, entry, examples ---
-    kernels.append(scale_out_path(mods, 17))
+        # ---- 17. scale-out, the oracle, the native loader, entry, examples ---
+        kernels.append(scale_out_path(mods, 17))
+
+    # ---- 18. the compiled entry points as CUDA graphs -------------------
+    for name, extra in graph_path(mods, 18).items():
+        entry = next(e for e in kernels if e["name"] == f"fused_admm/{name}")
+        entry["graph"] = extra
+    clock()
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -179,9 +179,13 @@ class DiffIkSolver:
         """Per-tick tracking solve: update ONE constraint target and re-solve,
         warm-starting duals from the previous tick when params.warm_start
         (the 1 kHz path, loik-loid-optimized.hpp:596-695).  On CUDA tensors
-        the tick is one launch of the fused kernel when it is eligible, and
-        the call returns without waiting for the device."""
+        the tick is one launch of the fused kernel when it is eligible, the
+        constraint update, FK, prepare, reset, the launch and the result
+        run as one captured CUDA graph per key (`utils.graphs`, the
+        counterpart of loik_tpu's `_tracking_jit`), and the call returns
+        without waiting for the device."""
         from .kernels.fused import _fused_body, resolve_fused
+        from .utils import graphs
 
         slot = self._slot(link)
         q = _as_batch(self.tree, q)
@@ -191,13 +195,25 @@ class DiffIkSolver:
             dtype=q.dtype, where="solve_tracking",
             num_constraints=len(self.constraint_links),
         )
-        self.problem = self.problem.update_constraint(slot, A=A, b=b)
         warm = self._state if self.params.warm_start else None
-        if fused:
-            res = _fused_body(self.params, batch_tile, self.tree, q,
-                              self.problem, warm)
-        else:
-            res = _solve_impl(self.tree, self.params, q, self.problem, warm)
+        A = None if A is None else self._tensor(A, self.problem.A)
+        b = None if b is None else self._tensor(b, self.problem.b)
+
+        def tick(q, problem, A, b, warm):
+            prob = problem.update_constraint(slot, A=A, b=b)
+            if fused:
+                res = _fused_body(self.params, batch_tile, self.tree, q, prob, warm)
+            else:
+                res = _solve_impl(self.tree, self.params, q, prob, warm)
+            return res, None if A is None else prob.A, None if b is None else prob.b
+
+        res, A_new, b_new = graphs.run(
+            "solve_tracking", self.tree, (self.params, slot, batch_tile), tick,
+            (q, self.problem, A, b, warm), capture=fused)
+        # the bound tensors stay the problem's own (problem._check_bounds)
+        self.problem = self.problem.replace(
+            A=self.problem.A if A_new is None else A_new,
+            b=self.problem.b if b_new is None else b_new)
         self._state = res.state
         self.last_result = res
         return res

@@ -1317,8 +1317,12 @@ __global__ void fused_admm_kernel(const __grid_constant__ LoikConfig cfg,
 }
 
 // Launch one instantiation with `smem` bytes of dynamic shared memory.  Above
-// 48 KB a block the kernel has to be allowed its size first; a launch the
-// card refuses never runs and shows in the returned code.
+// 48 KB a block the kernel has to be allowed its size first: every launch
+// allows it the most a block has, LOIK_MAX_SMEM_BYTES.  The attribute only
+// permits and never changes, so a CUDA graph's launch node, replayed after
+// launches of other sizes, stays allowed; under a capture the call is no
+// stream operation and is not recorded.  A launch the card refuses never
+// runs and shows in the returned code.
 template <typename T, bool MULTI, bool SALL>
 static int launch_kernel(int blocks, int threads, size_t smem, void* stream,
                          const LoikConfig& cfg, const LoikPtrs<T>& P,
@@ -1330,7 +1334,7 @@ static int launch_kernel(int blocks, int threads, size_t smem, void* stream,
 #else
   cudaError_t err = cudaFuncSetAttribute(fused_admm_kernel<T, MULTI, SALL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         LOIK_MAX_SMEM_BYTES);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;

@@ -80,12 +80,29 @@ MAX_SMEM_BYTES = 232448
 
 # number of kernel launches in this process: a run can read it to show that
 # its main path went through the kernel (a sharded solve launches from one
-# host thread per card, hence the lock)
+# host thread per card, hence the lock).  A launch recorded into a CUDA
+# graph being captured runs nothing then: it is counted per thread in
+# `_CAPTURED`, and every replay of the graph adds its launches here
+# (`utils.graphs`, `count_launches`)
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()
+_CAPTURED = threading.local()
 # set by `utils.debug_nans`: the kernel writes its state through pointers
 # no dispatch mode sees, so `fused_solve_loop` checks the state it returns
+# (it reads the device, so the entry points run uncaptured meanwhile)
 CHECK_NANS = False
+
+
+def count_launches(n: int) -> None:
+    """Add ``n`` launches to `LAUNCHES` (a replayed graph's)."""
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += n
+
+
+def captured_launches() -> int:
+    """Launches this thread has recorded into CUDA graphs so far."""
+    return getattr(_CAPTURED, "n", 0)
 
 # state fields that the kernel writes (everything except liMi and the logs),
 # in the order of the kernel's pointer array (csrc/fused_admm.cu::LoikPtr)
@@ -345,7 +362,6 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     rehearsal on CPU tensors (tools/rehearse_kernel.py); it runs in the call
     and is not counted as a launch.  None: the CUDA library, on the current
     stream of the tensors' device, with that device made current."""
-    global LAUNCHES
     dtype, dev = st.vis.dtype, st.vis.device
     B = st.vis.shape[-1]
     N, NC = tree.njoints, len(prob.constraint_links)
@@ -403,21 +419,26 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     cfg.clinks[:NC] = prob.constraint_links
 
     fn = lib.loik_fused_admm_f32 if dtype == torch.float32 else lib.loik_fused_admm_f64
+    capturing = False
     if rehearsal:
         err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(0))
     else:
         # the C side sets the kernel's shared-memory limit and launches on
-        # the CURRENT device: make the tensors' card current for the call
+        # the CURRENT device: make the tensors' card current for the call.
+        # Under a CUDA graph capture the current stream is the capture's,
+        # and the launch, its config passed by value, becomes a graph node
         with torch.cuda.device(dev):
+            capturing = torch.cuda.is_current_stream_capturing()
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(
             "fused ADMM kernel launch failed: "
             f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
-    if not rehearsal:
-        with _LAUNCHES_LOCK:
-            LAUNCHES += 1
+    if capturing:
+        _CAPTURED.n = captured_launches() + 1
+    elif not rehearsal:
+        count_launches(1)
     return dataclasses.replace(st, **out)
 
 
@@ -520,7 +541,13 @@ def solve_fused(tree, params: SolverParams, q, problem: IkProblem,
     """Drop-in variant of `solver.solve` running the fused kernel.
 
     float32-only, as in loik_tpu: float64 inputs are rejected up front (the
-    float64 path is `solver.solve` or the delta-duals refinement)."""
+    float64 path is `solver.solve` or the delta-duals refinement).  On CUDA
+    tensors FK, prepare, reset, the launch and the result run as one
+    captured CUDA graph per key (`utils.graphs`, the counterpart of
+    loik_tpu's `_run_fused`); eagerly under `utils.disable_graphs()` or
+    `utils.debug_nans()`."""
+    from ..utils import graphs
+
     q = _as_batch(tree, q)
     if q.dtype == torch.float64:
         raise ValueError(
@@ -528,4 +555,8 @@ def solve_fused(tree, params: SolverParams, q, problem: IkProblem,
             "solver.solve / solve_delta_duals for float64"
         )
     validate_problem(tree, problem)
-    return _fused_body(params, batch_tile, tree, q, problem, warm_state)
+    return graphs.run(
+        "solve_fused", tree, (params, batch_tile),
+        lambda q_, problem_, warm_: _fused_body(params, batch_tile, tree, q_,
+                                                problem_, warm_),
+        (q, problem, warm_state))

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -228,7 +229,20 @@ class KinematicTree:
         )
 
     def astype(self, dtype: torch.dtype) -> "KinematicTree":
-        return self.to(dtype=dtype)
+        """The tree in ``dtype``: the tree itself when it is in ``dtype``
+        already, else ONE cast tree per (tree, dtype), kept as long as this
+        tree lives.  A solve that casts on every call (the delta-duals
+        refinement's float32 and float64 trees) then hands a captured CUDA
+        graph the same tree, whose tensors the graph reads, every call."""
+        if dtype == self.dtype:
+            return self
+        key = (id(self), dtype)
+        hit = _CASTS.get(key)
+        if hit is not None and hit[0]() is self:
+            return hit[1]
+        cast = self.to(dtype=dtype)
+        _CASTS[key] = (weakref.ref(self, lambda _, casts=_CASTS: casts.pop(key, None)), cast)
+        return cast
 
     # ------------------------------------------------------------------ #
     # motion subspaces
@@ -278,10 +292,11 @@ class KinematicTree:
             return torch.cat([eye3, torch.zeros_like(eye3)], dim=0)
         if t == PLANAR:
             # local-frame planar twist: v = (vx, vy, 0; 0, 0, w): constant S
-            # (pinocchio MotionPlanar; integration handles the manifold)
-            S = np.zeros((6, 3))
-            S[0, 0] = S[1, 1] = S[5, 2] = 1.0
-            return self._const(S.tolist())
+            # (pinocchio MotionPlanar; integration handles the manifold).
+            # Columns of the identity, built on the device: no host data, so
+            # a captured CUDA graph may evaluate it
+            e = torch.eye(6, dtype=self.dtype, device=self.device)
+            return torch.stack([e[:, 0], e[:, 1], e[:, 5]], dim=-1)
         if q is None:
             kind = {SPHERICAL_ZYX: "spherical-ZYX", MIMIC_PAIR: "a mimic pair",
                     UNIVERSAL: "universal"}[t]
@@ -553,6 +568,9 @@ class KinematicTree:
         return (torch.stack(liMi_R, dim=-3), torch.stack(liMi_p, dim=-2),
                 torch.stack(oMi_R, dim=-3), torch.stack(oMi_p, dim=-2))
 
+
+# (id(tree), dtype) -> (weak reference to the tree, the tree cast to dtype)
+_CASTS: dict = {}
 
 COMPOSITE = "composite"  # make_tree-level sugar, expanded before building
 

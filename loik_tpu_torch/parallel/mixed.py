@@ -309,9 +309,14 @@ def solve_mixed_padded(
     `refine.solve_delta_duals` for tol-1e-6 runs).  The fused kernel supports
     the batched geometry leaves used here via precomputed per-problem motion
     subspaces (PreparedProblem.S_all), so the delta-duals backend runs both
-    its stages in the kernel.
+    its stages in the kernel.  The chain is new on every call, so a
+    solve_fn that runs as a CUDA graph runs uncaptured here
+    (`utils.graphs.inline`): its capture would never be replayed.
     """
+    from ..utils import graphs
+
     mp = prepare_mixed_padded(
         [(t, q.shape[0], p) for t, q, p in groups], dtype
     )
-    return mp.solve(params, [q for _, q, _ in groups], solve_fn=solve_fn)
+    with graphs.inline():
+        return mp.solve(params, [q for _, q, _ in groups], solve_fn=solve_fn)

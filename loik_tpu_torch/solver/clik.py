@@ -16,12 +16,16 @@ solve, integrate.  Per tick, for each problem of the batch:
      v_ref) are handled BY the solver.
   4. q <- integrate(q, dt * nu) on the configuration manifold.
 
-`loik_tpu` runs the ticks as one `lax.scan` program; here `solve_clik` is a
-tick loop on the host, like `solver.stream.solve_stream`, that enqueues
-every tick on the current CUDA stream without waiting for the device: no
-value is read back inside the loop, so on the kernel path the host runs
-ahead of the card by the whole horizon.  `reached`, `pos_err` and `rot_err`
-come from the final pose error after the loop.  Each tick warm-starts from
+`loik_tpu` runs the ticks as one `lax.scan` program (`_clik_jit`); here,
+as in `solver.stream.solve_stream`, the counterpart is `utils.graphs.scan`:
+on the kernel path on CUDA tensors one tick (the pose error, the velocity
+command and its clamp, the constraint update, the solve, the self-heal,
+the integration and the history row) is captured as a CUDA graph and
+replayed once per tick, q and the solver state carried in the graph's own
+buffers; elsewhere the same tick runs as a host loop.  No value is read
+back inside the loop, so the host runs ahead of the card by the whole
+horizon.  `reached`, `pos_err` and `rot_err` come from the final pose
+error after the loop.  Each tick warm-starts from
 the previous tick's duals, except problems whose tick did not converge,
 which restart cold (the self-heal: a tick whose QP was infeasible leaves
 diverged duals that would poison every later warm solve).
@@ -158,35 +162,49 @@ def solve_clik(tree, params: SolverParams, q0, target_R, target_p,
     cold = init_state(tree, B, 1, dtype, dev)
     st = cold if warm_state is None else warm_state
 
-    def pose_error(q):
+    def pose_error(q, target_R, target_p):
         _, _, oR, op = tree.fwd_kinematics(q)
         Ri, pi = spatial.se3_inverse(oR[..., link, :, :], op[..., link, :])
         Rd, pd = spatial.se3_compose(Ri, pi, target_R, target_p)
         return spatial.se3_log(Rd, pd)                 # (B, 6) local frame
 
-    q, hist = q0, []
-    with full_f32_matmul():
-        for _ in range(steps):
-            err = pose_error(q)
+    def tick(carry, _, consts):
+        q, st = carry[:2]
+        target_R_, target_p_, problem_, cold_ = consts
+        with full_f32_matmul():
+            err = pose_error(q, target_R_, target_p_)
             v_cmd = gain * err
             if max_task_velocity is not None:
                 mag = v_cmd.abs().amax(-1, keepdim=True)
                 v_cmd = v_cmd * torch.clamp(
                     float(max_task_velocity) / torch.clamp(mag, min=1e-30), max=1.0)
-            prob = problem.update_constraint(0, b=v_cmd)
+            prob = problem_.update_constraint(0, b=v_cmd)
             if fused:
                 res = _fused_body(params, batch_tile, tree, q, prob, st)
             else:
                 res = _solve_impl(tree, params, q, prob, st)
-            st = _heal(res.converged, res.state, cold)
+            st = _heal(res.converged, res.state, cold_)
             q = tree.integrate(q, dt * res.nu)
-            hist.append(err.abs().amax(-1))
-        err_final = pose_error(q)
+        return (q, st, res.nu, res.converged, res.iterations), err.abs().amax(-1)
+
+    from ..utils import graphs
+
+    # the last tick's solve outputs travel in the carry; their first values
+    # are never read (steps >= 1)
+    carry = (q0, st, q0.new_zeros((B, tree.nv)),
+             torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev))
+    (q, st, nu, conv, iters), hist = graphs.scan(
+        "solve_clik", tree,
+        (params, link, dt, gain, max_task_velocity, batch_tile),
+        tick, carry, None, (target_R, target_p, problem, cold), steps,
+        capture=fused)
+    with full_f32_matmul():
+        err_final = pose_error(q, target_R, target_p)
     pos_err = torch.linalg.norm(err_final[..., :3], dim=-1)
     rot_err = torch.linalg.norm(err_final[..., 3:], dim=-1)
     return ClikResult(
         q=q, reached=(pos_err < pos_tol) & (rot_err < rot_tol),
-        pos_err=pos_err, rot_err=rot_err, err_history=torch.stack(hist),
-        nu=res.nu, state=st, converged=res.converged,
-        iterations=res.iterations,
+        pos_err=pos_err, rot_err=rot_err, err_history=hist,
+        nu=nu, state=st, converged=conv, iterations=iters,
     )

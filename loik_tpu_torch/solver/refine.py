@@ -104,6 +104,13 @@ def solve_delta_duals(
     'require', `kernels.fused.resolve_fused`).  Returns results in the
     original space with a full-space state (warm-startable).
 
+    On CUDA tensors with the kernel, everything after the validation (the
+    casts, both stages with their FK, prepare, reset and launch, the
+    float64 KKT evaluation, the delta problem and the recombination) runs
+    as ONE captured CUDA graph per key (`utils.graphs`, the counterpart of
+    loik_tpu's `_delta_duals_jit`); eagerly under `utils.disable_graphs()`
+    or `utils.debug_nans()`, on the CPU, and with the eager loop.
+
     Constant-subspace trees only, as in loik_tpu (whose answer for
     universal / spherical-ZYX / mimic-pair joints is `solve_two_stage`)."""
     if tree.has_q_dependent_S:
@@ -118,9 +125,9 @@ def solve_delta_duals(
         batch_tile = default_batch_tile(tree.njoints)
     from ..kernels.fused import resolve_fused
 
-    fused = resolve_fused(fused, tree, params, q.shape[0], batch_tile,
-                          dtype=None, where="solve_delta_duals",
-                          num_constraints=problem.num_constraints)
+    fused = bool(resolve_fused(fused, tree, params, q.shape[0], batch_tile,
+                               dtype=None, where="solve_delta_duals",
+                               num_constraints=problem.num_constraints))
     p1 = params.replace(
         tol_abs=max(stage1_tol, params.tol_abs),
         tol_rel=max(stage1_tol, params.tol_rel),
@@ -135,17 +142,25 @@ def solve_delta_duals(
         freeze_infeasible_on_warm_start=True,
     )
     f32, f64 = torch.float32, torch.float64
-    return _delta_duals(
-        tree.astype(f32), tree.astype(f64), p1, p2, q,
-        _cast_problem(problem, f32), _cast_problem(problem, f64),
-        _cast_state(warm_state, f32) if warm_state is not None else None,
-        fused=bool(fused), batch_tile=batch_tile,
-    )
+    tree32, tree64 = tree.astype(f32), tree.astype(f64)
+
+    def body(q, problem, warm_state):
+        return _delta_duals(
+            tree32, tree64, p1, p2, q,
+            _cast_problem(problem, f32), _cast_problem(problem, f64),
+            _cast_state(warm_state, f32) if warm_state is not None else None,
+            fused=fused, batch_tile=batch_tile,
+        )
+
+    from ..utils import graphs
+
+    return graphs.run("solve_delta_duals", tree, (p1, p2, batch_tile), body,
+                      (q, problem, warm_state), capture=fused)
 
 
 def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
                  fused=False, batch_tile=128) -> SolveResult:
-    """The body of loik_tpu's `_delta_duals_jit`, run eagerly."""
+    """The body of loik_tpu's `_delta_duals_jit`."""
     f32, f64 = torch.float32, torch.float64
     B = q.shape[0]
     if fused:

@@ -4,13 +4,16 @@ Port of `loik_tpu.solver.stream`.  The reference's 1 kHz control-loop
 surface is the tailored `Solve(q, c_id, Ai, bi)` overload
 (loik-loid-optimized.hpp:596-695): every tick updates one constraint target
 and re-solves warm-started from the last tick's duals.  `loik_tpu` runs a
-horizon of ticks as one `lax.scan` program; here `solve_stream` is a tick
-loop on the host that enqueues every tick's work on the current CUDA stream
-and never waits for the device: the targets are moved to the device once,
-each tick indexes them there, the fused kernel takes the previous tick's
-state as its input, and the per-tick outputs are stacked at the end.  The
-host runs ahead of the card by the whole horizon.  (A captured CUDA graph
-of the horizon is listed in ROADMAP.md.)
+horizon of ticks as one `lax.scan` program (`_stream_jit`); here the
+counterpart is `utils.graphs.scan`: on the kernel path on CUDA tensors ONE
+tick (the constraint update, FK, prepare, reset, the launch) is captured as
+a CUDA graph and replayed T times, the warm state carried in the graph's
+own buffers, each tick's target read on the device at a tick counter and
+its outputs written into (T, ...) buffers.  The host never waits for the
+device and enqueues one graph launch a tick.  Under
+`utils.disable_graphs()`, on the CPU and with the eager loop the same tick
+runs as a host loop, which on the kernel path enqueues every operator of
+every tick.
 
 A controller that must react to sensors each tick uses
 `DiffIkSolver.solve_tracking`; one that can stage a horizon of targets (or
@@ -77,7 +80,8 @@ def solve_stream(tree, params: SolverParams, q, problem: IkProblem,
 
     On CUDA tensors each tick runs the fused kernel when eligible (float32 —
     except refine="delta", whose stages cast to float32 internally — motion
-    subspaces independent of q, no logging/verbose); otherwise the eager
+    subspaces independent of q, no logging/verbose), and the stream replays
+    one captured tick T times (`utils.graphs.scan`); otherwise the eager
     loop solves each tick, synchronising the host every iteration.
     Per-iteration logging is unsupported (use `solve_tracking` per tick).
     """
@@ -118,12 +122,11 @@ def solve_stream(tree, params: SolverParams, q, problem: IkProblem,
     elif refine == "delta":
         warm_state = _cast_state(warm_state, torch.float32)
 
-    st = warm_state
-    ticks = []
-    for t in range(b_seq.shape[0]):
-        prob = problem.update_constraint(
-            slot, A=None if A_seq is None else A_seq[t], b=b_seq[t])
-        qt = q[t] if q.ndim == 3 else q
+    def tick(st, x, consts):
+        b_t, A_t, q_t = x
+        q_fixed, problem_ = consts
+        prob = problem_.update_constraint(slot, A=A_t, b=b_t)
+        qt = q_fixed if q_t is None else q_t
         if refine == "delta":
             res = solve_delta_duals(tree, params, qt, prob, warm_state=st,
                                     fused=fused, batch_tile=batch_tile)
@@ -131,9 +134,15 @@ def solve_stream(tree, params: SolverParams, q, problem: IkProblem,
             res = _fused_body(params, batch_tile, tree, qt, prob, st)
         else:
             res = _solve_impl(tree, params, qt, prob, st)
-        st = res.state
-        ticks.append((res.nu, res.converged, res.iterations,
-                      res.primal_residual, res.dual_residual))
-    nu, conv, iters, rp, rd = (torch.stack(col) for col in zip(*ticks))
+        return res.state, (res.nu, res.converged, res.iterations,
+                           res.primal_residual, res.dual_residual)
+
+    from ..utils import graphs
+
+    per_tick_q = q.ndim == 3
+    st, (nu, conv, iters, rp, rd) = graphs.scan(
+        "solve_stream", tree, (params, slot, refine, batch_tile), tick,
+        warm_state, (b_seq, A_seq, q if per_tick_q else None),
+        (None if per_tick_q else q, problem), b_seq.shape[0], capture=fused)
     return StreamResult(nu=nu, converged=conv, iterations=iters,
                         primal_residual=rp, dual_residual=rd, state=st)

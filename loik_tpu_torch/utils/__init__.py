@@ -1,4 +1,5 @@
 from .checkpoint import load_state, save_state
+from .graphs import clear_graphs, disable_graphs
 from .observability import (MirrorMismatch, Timer, debug_mirror,
                             debug_nans, no_recompile_guard, trace)
 
@@ -11,4 +12,6 @@ __all__ = [
     "MirrorMismatch",
     "save_state",
     "load_state",
+    "disable_graphs",
+    "clear_graphs",
 ]

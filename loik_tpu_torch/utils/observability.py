@@ -8,9 +8,10 @@ the reference's:
   `torch.profiler` context writing a Chrome trace (chrome://tracing,
   Perfetto), and `Timer`.
 - `CHECK_RUNTIME_MALLOC` / `LOIK_EIGEN_MALLOC_NOT_ALLOWED` (macros.hpp:7-15;
-  CMakeLists.txt:93-97) -> `no_recompile_guard()`.  The port has no jit:
-  what a steady-state loop must not do is build the kernel library again
-  or make the CUDA caching allocator reserve new device memory.
+  CMakeLists.txt:93-97) -> `no_recompile_guard()`.  What a steady-state
+  loop must not do is capture a CUDA graph (the port's counterpart of a jit
+  compile, `utils.graphs`), build the kernel library again or make the
+  CUDA caching allocator reserve new device memory.
 - `INITIALIZE_WITH_NAN` (CMakeLists.txt:88-91) -> `debug_nans()`.
 """
 
@@ -31,6 +32,7 @@ from torch.utils._pytree import tree_flatten
 from ..kernels import _build
 from ..kernels import fused as _fused
 from ..solver.state import LOG_FIELDS
+from . import graphs as _graphs
 
 
 @contextlib.contextmanager
@@ -77,7 +79,8 @@ def debug_nans(enable: bool = True):
     backward pass (`torch.autograd.set_detect_anomaly` with check_nan).
     ``enable=False`` turns the checks off inside an enabled block.  The
     previous settings are restored on exit.  Every check reads the device,
-    so the block synchronises after each operator."""
+    so the block synchronises after each operator, and the entry points run
+    uncaptured inside it (no CUDA graph, `utils.graphs`)."""
     old_flag = _fused.CHECK_NANS
     _fused.CHECK_NANS = enable
     try:
@@ -104,18 +107,20 @@ def _segments() -> int:
 @contextlib.contextmanager
 def no_recompile_guard(allowed: int = 0):
     """Fail if more than ``allowed`` steady-state "hot-loop malloc" events
-    happen inside the block: nvcc builds of the kernel library, and (on
-    CUDA) device-memory segments newly reserved by the caching allocator.
-    Yields a `CompileEvents`, filled in when the block ends.
+    happen inside the block: CUDA graph captures (the counterpart of the
+    JAX guard's backend compiles), nvcc builds of the kernel library, and
+    (on CUDA) device-memory segments newly reserved by the caching
+    allocator.  Yields a `CompileEvents`, filled in when the block ends.
 
     Usage: warm the solver up once, then wrap the steady-state loop; an
     event means a shape or a setting leaked into the loop (a new batch
     size, say) — the analog of the reference's runtime-malloc checker."""
     events = CompileEvents()
-    builds0, segments0 = _build.BUILDS, _segments()
+    captures0, builds0, segments0 = len(_graphs.CAPTURES), _build.BUILDS, _segments()
     try:
         yield events
     finally:
+        events.names += ["cuda graph capture"] * (len(_graphs.CAPTURES) - captures0)
         events.names += ["nvcc build"] * (_build.BUILDS - builds0)
         events.names += ["cuda segment"] * (_segments() - segments0)
         events.count = len(events.names)
