@@ -9,7 +9,9 @@ and the logged mirror of a kernel solve (phases 15-16), then the scale-out
 and surface paths (phase 17), all launched eagerly under
 `utils.disable_graphs()` (several phases hook Python functions that a CUDA
 graph's replay never calls); then phase 18, the same entry points as
-captured CUDA graphs, the default on the card.  Three are the
+captured CUDA graphs, the default on the card, and phase 19, the entry
+points whose graphs hold the solver's masked while loop as a WHILE node.
+Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
 tol 1e-6, whose two float32 stages each run the kernel:
@@ -43,9 +45,10 @@ Three are the planner and position-level paths:
   - two-stage: the flagship's inputs through
     `solve_refined(method="two-stage", stage1_max_iter=32, stage2_max_iter=4)`
     (bench.py's two-stage defaults): one launch (the float32 stage 1), then
-    the eager float64 stage 2; and `mobile_ur5` (a universal joint, so the
-    kernel cannot take it) at B = 4096 through `solve_refined()` with
-    fused=None, which takes the eager two-stage path silently.
+    the float64 stage 2 on the masked while loop; and `mobile_ur5` (a
+    universal joint, so the kernel cannot take it) at B = 4096 through
+    `solve_refined()` with fused=None, which takes the two-stage path on
+    while loops alone, silently.
 
 Phases (any failure raises, so the script exits nonzero):
   1. a CUDA device, and the card's name and power limit from nvidia-smi;
@@ -188,7 +191,32 @@ Phases (any failure raises, so the script exits nonzero):
      synchronous p50 over 40 ticks) and, for the stream and CLIK, the
      device's idle share on the profiler's trace of one replayed run (the
      gaps between its device operations over their span).  The `kernels`
-     entries of those paths carry these numbers under "graph".
+     entries of those paths carry these numbers under "graph";
+ 19. the masked while loop as a CUDA graph WHILE node
+     (`utils.graphs.while_loop`): `solve()` on the flagship (B = 16384,
+     check_interval 8), solo12 (B = 10240, 4) and talos (B = 4096, 1); the
+     two-stage `solve_refined()` on mobile_ur5 (B = 4096, both stages while
+     loops) and on the flagship (caps 32 / 4: one kernel launch, then the
+     float64 while loop); the flagship's `solve_delta_refined`; the mixed
+     512 + 512 `solve_packed` and `solve_scan` over R = 4 with the default
+     solve; one multistart batch of 16384 seeds with the default solve (the
+     sampler, solve, scoring and top k as one graph, the eager call drawing
+     from a twin generator); `track_scan` (T = 10, from a settled warm
+     state; and T = 100 graphed, its first 10 ticks held to those, timed
+     once) and
+     `solve_tracking` on the plain loop at B = 256, each: the
+     first call's time, the capture's time, pool and nodes (the WHILE
+     bodies' included); a repeated call with 0 host synchronisations and 1
+     kernel launch (the flagship two-stage) or 0; graphed equal to the same
+     call launched eagerly on every tensor, bit for bit, after as many loop
+     body executions (`graphs.body_executions`); the two-stage runs
+     certified as in phase 5; a second call with other inputs leaving the
+     first result unchanged; graphed and eager-launched times in turns
+     (CUDA events, median of 5; an eager-launched call over 2.5 s timed
+     once, marked "a single reading"; `solve_tracking`: synchronous p50
+     over 10 ticks); the share of
+     the graphed call spent copying the carry back.  The two-stage
+     `kernels` entry carries its numbers under "graph".
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -225,6 +253,13 @@ MULTISTART = dict(B=16384, seeds=100_000, k=8, stage1_max_iter=32, prefix=1024)
 CLIK = dict(B=16384, steps=80, dt=0.1, gain=2.0, tol=1e-4, max_iter=100, spread=0.35,
             prefix=1024, short=10, reached_prefix=64)
 TWO_STAGE = dict(stage1_max_iter=32, stage2_max_iter=4, mobile_B=4096)
+# the while-loop graphs (phase 19): the mixed scan's reps; the plain-loop
+# tracking fleet, its ticks (cut from the kernel path's 100: its stragglers
+# make about 68 body executions a tick, 15 s a graphed stream of 100 on
+# NVIDIA H100 80GB HBM3), the solve_tracking ticks compared and timed; an
+# eager-launched call longer than eager_reps_below_ms is timed once
+WHILE = dict(mixed_reps=4, tracking_B=256, tracking_T=10, tracking_T_long=100, ticks=5,
+             p50_ticks=10, eager_reps_below_ms=2500.0)
 # the differentiable solve (flagship task, check_interval 1), the second
 # derivative's batch, the float32 gradient's bound against float64, and the
 # batch of the allocation guard's first solve.  The float32 bound: at tol
@@ -1909,11 +1944,12 @@ def bits_equal(torch, got, want):
             or not torch.equal(x.isnan(), y.isnan())]
 
 
-def in_turns(torch, fns, reps=5):
+def in_turns(torch, fns, reps=5, warm=True):
     """Median CUDA-event time of each of ``fns`` over ``reps`` rounds, the
-    functions run in turns within a round (one warm-up round first)."""
+    functions run in turns within a round (one warm-up round first, unless
+    not ``warm``: the functions ran before)."""
     times = [[] for _ in fns]
-    for r in range(reps + 1):
+    for r in range(1 - int(warm), reps + 1):
         for i, fn in enumerate(fns):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1924,6 +1960,67 @@ def in_turns(torch, fns, reps=5):
             if r:
                 times[i].append(start.elapsed_time(end))
     return [statistics.median(t) for t in times]
+
+
+def first_call(torch, what, fn):
+    """fn() as the first call of its key: (result, host-clock seconds,
+    the capture's record)."""
+    from loik_tpu_torch.utils import graphs
+
+    n = len(graphs.CAPTURES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if len(graphs.CAPTURES) != n + 1:
+        raise AssertionError(f"{what}: {len(graphs.CAPTURES) - n} captures, expected 1")
+    cap = graphs.CAPTURES[-1]
+    log(f"    {what}: first call {secs:.3f} s ({cap.tag}: warm-up and capture "
+        f"{cap.seconds:.3f} s), graph pool {cap.pool_bytes / 2**20:.1f} MiB "
+        f"(memory_reserved across the capture), static inputs "
+        f"{cap.static_bytes / 2**20:.2f} MiB, {cap.launches} kernel launch(es) a replay")
+    return res, secs, cap
+
+
+def repeated(torch, fused_mod, what, fn, want_launches):
+    """fn() as a repeated call: its launches and host synchronisations."""
+    torch.cuda.synchronize()
+    fused_mod.LAUNCHES = 0
+    res, syncs = count_syncs(torch, fn)
+    torch.cuda.synchronize()
+    launches = fused_mod.LAUNCHES
+    log(f"    {what}: a repeated call launched the kernel {launches} times (replayed), "
+        f"host synchronisations {len(syncs)}")
+    if launches != want_launches:
+        raise AssertionError(f"{what}: {launches} launches, expected {want_launches}")
+    if syncs:
+        raise AssertionError(f"{what} synchronises the host: " + "; ".join(syncs[:5]))
+    return res, launches
+
+
+def same_bits(torch, what, got, want):
+    bad = bits_equal(torch, got, want)
+    log(f"    {what}: graphed against eager-launched, {len(leaves(got))} tensors, "
+        f"{len(bad)} differ")
+    if bad:
+        raise AssertionError(f"{what}: graphed and eager-launched results differ in "
+                             f"tensors {bad[:10]}")
+
+
+def unaliased(torch, what, first, again):
+    """``first`` (a result already cloned into ``kept``) is unchanged
+    after ``again()``, a call with other inputs, whose result differs."""
+    kept = [t.clone() for t in leaves(first)]
+    second = again()
+    torch.cuda.synchronize()
+    moved = [i for i, (a, b) in enumerate(zip(leaves(first), kept))
+             if not torch.equal(a.nan_to_num(), b.nan_to_num())]
+    differs = bool(bits_equal(torch, first, second))
+    log(f"    {what}: a second call with other inputs left the first result unchanged: "
+        f"{not moved}; its result differs: {differs}")
+    if moved or not differs:
+        raise AssertionError(f"{what}: results alias between calls ({moved[:5]})")
 
 
 def graph_path(mods, phase):
@@ -1937,61 +2034,6 @@ def graph_path(mods, phase):
     dev = torch.device("cuda")
     t_phase = time.time()
     out = {}
-
-    def first_call(what, fn):
-        """fn() as the first call of its key: (result, host-clock seconds,
-        the capture's record)."""
-        n = len(graphs.CAPTURES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        if len(graphs.CAPTURES) != n + 1:
-            raise AssertionError(f"{what}: {len(graphs.CAPTURES) - n} captures, expected 1")
-        cap = graphs.CAPTURES[-1]
-        log(f"    {what}: first call {secs:.3f} s ({cap.tag}: warm-up and capture "
-            f"{cap.seconds:.3f} s), graph pool {cap.pool_bytes / 2**20:.1f} MiB "
-            f"(memory_reserved across the capture), static inputs "
-            f"{cap.static_bytes / 2**20:.2f} MiB, {cap.launches} kernel launch(es) a replay")
-        return res, secs, cap
-
-    def repeated(what, fn, want_launches):
-        """fn() as a repeated call: its launches and host synchronisations."""
-        torch.cuda.synchronize()
-        fused_mod.LAUNCHES = 0
-        res, syncs = count_syncs(torch, fn)
-        torch.cuda.synchronize()
-        launches = fused_mod.LAUNCHES
-        log(f"    {what}: a repeated call launched the kernel {launches} times (replayed), "
-            f"host synchronisations {len(syncs)}")
-        if launches != want_launches:
-            raise AssertionError(f"{what}: {launches} launches, expected {want_launches}")
-        if syncs:
-            raise AssertionError(f"{what} synchronises the host: " + "; ".join(syncs[:5]))
-        return res, launches
-
-    def same_bits(what, got, want):
-        bad = bits_equal(torch, got, want)
-        log(f"    {what}: graphed against eager-launched, {len(leaves(got))} tensors, "
-            f"{len(bad)} differ")
-        if bad:
-            raise AssertionError(f"{what}: graphed and eager-launched results differ in "
-                                 f"tensors {bad[:10]}")
-
-    def unaliased(what, first, again):
-        """``first`` (a result already cloned into ``kept``) is unchanged
-        after ``again()``, a call with other inputs, whose result differs."""
-        kept = [t.clone() for t in leaves(first)]
-        second = again()
-        torch.cuda.synchronize()
-        moved = [i for i, (a, b) in enumerate(zip(leaves(first), kept))
-                 if not torch.equal(a.nan_to_num(), b.nan_to_num())]
-        differs = bool(bits_equal(torch, first, second))
-        log(f"    {what}: a second call with other inputs left the first result unchanged: "
-            f"{not moved}; its result differs: {differs}")
-        if moved or not differs:
-            raise AssertionError(f"{what}: results alias between calls ({moved[:5]})")
 
     def graph_idle(what, fn, T):
         """The device's idle share over ONE traced, replayed run of T ticks:
@@ -2018,12 +2060,12 @@ def graph_path(mods, phase):
         graphed and eager-launched times in turns.  Returns the repeated
         call's result."""
         eager = eager or fn
-        _, cap_s, cap = first_call(what, fn)
-        res, n = repeated(what, fn, launches)
+        _, cap_s, cap = first_call(torch, what, fn)
+        res, n = repeated(torch, fused_mod, what, fn, launches)
         with graphs.disable_graphs():
             want = eager()
-        same_bits(what, res, want)
-        unaliased(what, res, other)
+        same_bits(torch, what, res, want)
+        unaliased(torch, what, res, other)
 
         def eager_launched():
             with graphs.disable_graphs():
@@ -2104,12 +2146,12 @@ def graph_path(mods, phase):
 
         log(f"[{phase}] tracking stream B={B} T={T} tol {tol:g}, solve_stream from a "
             "settled warm state:")
-        _, cap_s, cap = first_call(f"stream B={B}", stream)
-        res, launches = repeated(f"stream B={B}", stream, T)
+        _, cap_s, cap = first_call(torch, f"stream B={B}", stream)
+        res, launches = repeated(torch, fused_mod, f"stream B={B}", stream, T)
         with graphs.disable_graphs():
             want = stream()
-        same_bits(f"stream B={B}", res, want)
-        unaliased(f"stream B={B}", res, lambda: stream(0.5 * sweep))
+        same_bits(torch, f"stream B={B}", res, want)
+        unaliased(torch, f"stream B={B}", res, lambda: stream(0.5 * sweep))
 
         def eager_stream():
             with graphs.disable_graphs():
@@ -2138,8 +2180,8 @@ def graph_path(mods, phase):
         got = [kern.solve_tracking(q, links[0], b=b) for b in sweep[:n]]
         with graphs.disable_graphs():
             want = [eager.solve_tracking(q, links[0], b=b) for b in sweep[:n]]
-        same_bits(f"solve_tracking B={B}, {n} ticks", got, want)
-        _, launches = repeated(f"solve_tracking B={B}",
+        same_bits(torch, f"solve_tracking B={B}, {n} ticks", got, want)
+        _, launches = repeated(torch, fused_mod, f"solve_tracking B={B}",
                                lambda: kern.solve_tracking(q, links[0], b=sweep[n]), 1)
         lat = {"graphed": [], "eager-launched": []}
         for b in sweep[n + 1:n + 41]:
@@ -2169,12 +2211,12 @@ def graph_path(mods, phase):
         return solver.reach(q0, tR, target_p, steps=T, **run)
 
     log(f"[{phase}] clik reach B={B} T={T} tol {CLIK['tol']:g}:")
-    _, cap_s, cap = first_call("clik", reach)
-    res, launches = repeated("clik", reach, T)
+    _, cap_s, cap = first_call(torch, "clik", reach)
+    res, launches = repeated(torch, fused_mod, "clik", reach, T)
     with graphs.disable_graphs():
         want = reach()
-    same_bits("clik", res, want)
-    unaliased("clik", res, lambda: reach(tp + 0.01))
+    same_bits(torch, "clik", res, want)
+    unaliased(torch, "clik", res, lambda: reach(tp + 0.01))
 
     def eager_reach():
         with graphs.disable_graphs():
@@ -2198,6 +2240,274 @@ def graph_path(mods, phase):
     torch.cuda.empty_cache()
     log(f"    {len(graphs.CAPTURES)} captures in this process, {held} graphs held before "
         f"clear_graphs(); phase {phase} took {time.time() - t_phase:.1f} s")
+    return out
+
+
+def while_path(mods, phase):
+    """Phase 19: the entry points whose CUDA graphs hold the masked while
+    loop as a WHILE node (`utils.graphs.while_loop`), each against the same
+    call launched eagerly under `disable_graphs()`, where the loop reads the
+    running mask on the host every body execution.  Returns, per path, its
+    graph numbers."""
+    import warnings
+
+    from loik_tpu_torch.utils import graphs
+
+    torch, lt, fused_mod, sm, _, bsp = mods
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    out = {}
+
+    def body_runs(fn):
+        """fn()'s result and the loop body executions it ran."""
+        torch.cuda.synchronize()
+        graphs.reset_body_executions()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, graphs.body_executions()
+
+    def copy_share(what, cap, trips, graph_ms):
+        """The share of a replayed call spent copying the carry back: the
+        CUDA-event time of one body execution's copies (a graph of
+        device-to-device copies of the sizes `Loop.copies` records, replayed
+        20 times), the largest loop's, times the body executions, over the
+        call's time.  Exact for one loop or loops of equal carries (two
+        float64 stages of a float32 one: at most)."""
+        ms = 0.0
+        for lp in cap.loops:
+            src = [torch.empty(b, dtype=torch.uint8, device=dev) for b in lp.copies if b]
+            dst = [torch.empty_like(x) for x in src]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for d, x in zip(dst, src):
+                    d.copy_(x)
+            ms = max(ms, cuda_median_ms(torch, lambda: [graph.replay() for _ in range(20)]) / 20)
+        share = ms * trips / graph_ms
+        log(f"    {what}: the carry copy-back takes {ms * 1e3:.2f} us a body execution "
+            f"({max(sum(lp.copies) for lp in cap.loops) / 2**20:.3f} MiB, CUDA events), "
+            f"{share:.4f} of the graphed call")
+        return share
+
+    def timed(fn):
+        """fn()'s result and its CUDA-event time, ms."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def held(name, what, fn, other, launches=0, eager=None, eager_before=0, ticks=None):
+        """One path as a graph: its first call (capture time, pool, nodes),
+        a repeated call (launches counted, no host synchronisation, body
+        executions on the device), the eager-launched call (``eager``, run
+        ``eager_before`` times first, or ``fn`` under `disable_graphs()`):
+        the same bits after as many body executions; a second call with
+        other inputs (``other``) that leaves the first result alone; the
+        graphed and eager-launched times in turns (an eager-launched call
+        that takes more than `WHILE["eager_reps_below_ms"]` is timed once,
+        the call compared), and the share of the graphed call spent
+        copying the carry back."""
+        eager = eager or fn
+
+        def eager_launched():
+            with graphs.disable_graphs():
+                return eager()
+
+        _, first_s, cap = first_call(torch, what, fn)
+        graphs.reset_body_executions()
+        res, n = repeated(torch, fused_mod, what, fn, launches)
+        torch.cuda.synchronize()
+        trips = graphs.body_executions()
+        for _ in range(eager_before):
+            eager_launched()
+        (want, e_first), eager_trips = body_runs(lambda: timed(eager_launched))
+        log(f"    {what}: {cap.nodes} graph nodes, {len(cap.loops)} WHILE node(s) with "
+            f"{[lp.body_nodes for lp in cap.loops]} body nodes; body executions graphed "
+            f"{trips}, eager-launched {eager_trips}")
+        if trips != eager_trips:
+            raise AssertionError(f"{what}: {trips} body executions graphed, "
+                                 f"{eager_trips} eager-launched")
+        same_bits(torch, what, res, want)
+        unaliased(torch, what, res, other)
+        if e_first < WHILE["eager_reps_below_ms"]:
+            g_ms, e_ms = in_turns(torch, [fn, eager_launched], warm=False)
+            e_n, e_how = 5, "median of 5"
+        else:
+            (g_ms,), e_ms = in_turns(torch, [fn], warm=False), e_first
+            e_n, e_how = 1, "a single reading"
+        per = f" ({g_ms / ticks:.4f} and {e_ms / ticks:.4f} ms a tick)" if ticks else ""
+        log(f"    {what}: graphed {g_ms:.3f} ms (median of 5), eager-launched {e_ms:.3f} ms "
+            f"({e_how}){per}, CUDA events, in turns")
+        out[name] = dict(graph_ms=g_ms, eager_launched_ms=e_ms, eager_launched_reps=e_n,
+                         eager_launched_timing=e_how,
+                         first_call_s=first_s, capture_s=cap.seconds,
+                         pool_bytes=cap.pool_bytes, nodes=cap.nodes,
+                         while_nodes=len(cap.loops), body_executions=trips,
+                         copy_back_bytes_per_body=max(sum(lp.copies) for lp in cap.loops),
+                         copy_share=copy_share(what, cap, trips, g_ms), graph_launches=n)
+        return res
+
+    # ---- solve() on the three delta-duals main paths' trees and inputs ----
+    for name in ("flagship", "solo12", "talos"):
+        B, K = PATHS[name]["B"], PATHS[name]["K"]
+        tree, links, problem, params, q = config(lt, torch, name, torch.float32, dev, B, K)
+        log(f"[{phase}] {name} B={B} check_interval={K}, solve():")
+        held(f"solve_{name}", f"solve {name}",
+             lambda tree=tree, params=params, q=q, problem=problem:
+                 lt.solve(tree, params, q, problem),
+             lambda: lt.solve(tree, params, q.flip(0), problem))
+
+    # ---- the two-stage path on mobile_ur5 and on the flagship ------------
+    Bm = TWO_STAGE["mobile_B"]
+    B, K = PATHS["flagship"]["B"], PATHS["flagship"]["K"]
+    tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B, K)
+    mtree = lt.robots.mobile_ur5("float32", device=dev)
+    mlinks = (mtree.joint_names.index("wrist_3_joint"),)
+    mproblem = lt.make_problem(
+        mtree, mlinks, b=torch.tensor([[0.0, 0.0, 0.2, 0.0, 0.0, 0.0]]),
+        lb=-4.0 * torch.ones(mtree.nv), ub=4.0 * torch.ones(mtree.nv))
+    mq = mtree.random_configuration((Bm,), generator=torch.Generator(device=dev).manual_seed(0))
+    msolver = lt.DiffIkSolver(mtree, params, mlinks, problem=mproblem)
+    log(f"[{phase}] mobile_ur5 B={Bm} check_interval={K}, solve_refined(): the two-stage "
+        "path, both stages while loops")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mres = held("two_stage_mobile_ur5", "two-stage mobile_ur5",
+                    lambda qq=mq: msolver.solve_refined(qq),
+                    lambda: msolver.solve_refined(mq.flip(0)))
+    noisy = [str(w.message) for w in caught if "fused" in str(w.message)]
+    if noisy:
+        raise AssertionError(f"mobile_ur5: kernel warnings {noisy}")
+    certify(mods, mtree, mproblem, mlinks, mq, mres, label="mobile_ur5: ")
+
+    solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
+    kw = dict(method="two-stage", stage1_max_iter=TWO_STAGE["stage1_max_iter"],
+              stage2_max_iter=TWO_STAGE["stage2_max_iter"])
+    log(f"[{phase}] flagship B={B} two-stage (stage caps {kw['stage1_max_iter']} / "
+        f"{kw['stage2_max_iter']}): the kernel, then the float64 while loop")
+    res = held("two_stage", "two-stage flagship",
+               lambda qq=q: solver.solve_refined(qq, **kw),
+               lambda: solver.solve_refined(q.flip(0), **kw), launches=1)
+    certify(mods, tree, problem, links, q, res)
+
+    log(f"[{phase}] flagship B={B} check_interval={K}, solve_delta_refined():")
+    held("delta_refined", "delta-refined flagship",
+         lambda qq=q: lt.solve_delta_refined(tree, params, qq, problem),
+         lambda: lt.solve_delta_refined(tree, params, q.flip(0), problem))
+
+    # ---- the mixed super-batch: one solve, and a scan over R reps --------
+    B, K = PATHS["mixed"]["B"], PATHS["mixed"]["K"]
+    mp, groups, mparams = mixed_setup(lt, torch, torch.float32, B // 2, K)
+    qs = [g[1] for g in groups]
+    log(f"[{phase}] mixed {B // 2} ur5 + {B // 2} panda_arm check_interval={K}, "
+        "MixedPadded.solve_packed with the default solve:")
+    held("mixed", "mixed solve_packed", lambda qq=qs: mp.solve_packed(mparams, qq),
+         lambda: mp.solve_packed(mparams, [x.flip(0) for x in qs]))
+    R = WHILE["mixed_reps"]
+    stacked = [torch.stack([x.roll(r, 0) for r in range(R)]) for x in qs]
+    log(f"[{phase}] mixed solve_scan over R={R} staged super-batches (graphs.scan):")
+    held("mixed_scan", "mixed solve_scan", lambda st=stacked: mp.solve_scan(mparams, st),
+         lambda: mp.solve_scan(mparams, [x.flip(1) for x in stacked]), ticks=R)
+
+    # ---- one multistart batch with the default solve ---------------------
+    B, k = MULTISTART["B"], MULTISTART["k"]
+    tree, links, problem, params, _ = config(lt, torch, "flagship", torch.float32, dev, B,
+                                             PATHS["flagship"]["K"])
+    gen, twin = (torch.Generator(device=dev).manual_seed(7) for _ in range(2))
+
+    def multistart(g=gen):
+        return lt.parallel.solve_multistart(tree, params, problem, g, B, k=k)
+
+    log(f"[{phase}] multistart one batch of {B} seeds (top {k}), the default solve "
+        "(sampler, solve, scoring and top k as one graph):")
+    held("multistart", "multistart", multistart, multistart,
+         eager=lambda: multistart(twin), eager_before=1)
+
+    # ---- the tracking tick and stream on the plain loop -------------------
+    B, T, tol = WHILE["tracking_B"], WHILE["tracking_T"], TRACKING["tol"]
+    n, T_long = WHILE["ticks"], WHILE["tracking_T_long"]
+    sweep = torch.zeros((max(T_long, n + 1 + WHILE["p50_ticks"]), 6), dtype=torch.float32,
+                        device=dev)
+    sweep[:, 2] = 0.2 * torch.cos(2 * torch.pi * torch.arange(sweep.shape[0], device=dev) / T)
+    tree, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B, 1)
+    params = params.replace(tol_abs=tol, tol_rel=tol, warm_start=True)
+    ticker = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False)
+    for _ in range(TRACKING["settle"]):                # settle the duals (graphed ticks)
+        ticker.solve_tracking(q, links[0], b=problem.b[0])
+    warm, settled = ticker.state, ticker.problem
+
+    def scan(b_seq=sweep[:T]):
+        ticker._state, ticker.problem = warm, settled
+        return ticker.track_scan(q, b_seq, links[0])
+
+    log(f"[{phase}] track_scan on the plain loop B={B} T={T} tol {tol:g}, from a settled "
+        "warm state (a WHILE node in each replayed tick):")
+    short = held(f"tracking_B{B}", f"track_scan B={B}", scan, lambda: scan(0.5 * sweep[:T]),
+                 ticks=T)
+
+    # the long stream graphed: an eager-launched tick takes about ten times a
+    # graphed one, so the eager stream above is its first T ticks; its time
+    # is a single reading (five would add 20-25 s to the script's budget)
+    def long_scan(b_seq=sweep[:T_long]):
+        return scan(b_seq)
+
+    def first_ticks(r):
+        return [r.nu[:T], r.converged[:T], r.iterations[:T], r.primal_residual[:T],
+                r.dual_residual[:T]]
+
+    what = f"track_scan B={B} T={T_long}"
+    log(f"[{phase}] {what} graphed, its first {T} ticks against the eager-launched "
+        f"stream of {T} ticks:")
+    _, first_s, cap = first_call(torch, what, long_scan)
+    res, n_long = repeated(torch, fused_mod, what, long_scan, 0)
+    same_bits(torch, f"{what}, its first {T} ticks", first_ticks(res), first_ticks(short))
+    _, g_ms = timed(long_scan)
+    log(f"    {what}: graphed {g_ms:.3f} ms (a single reading, {g_ms / T_long:.4f} ms a "
+        f"tick), CUDA events; {cap.nodes} graph nodes")
+    out[f"tracking_B{B}_T{T_long}"] = dict(
+        graph_ms=g_ms, graph_timing="a single reading", graph_ms_per_tick=g_ms / T_long,
+        first_call_s=first_s,
+        capture_s=cap.seconds, pool_bytes=cap.pool_bytes, nodes=cap.nodes,
+        while_nodes=len(cap.loops), graph_launches=n_long)
+
+    kern = lt.DiffIkSolver(tree, params, links, problem=settled, fused=False)
+    eager = lt.DiffIkSolver(tree, params, links, problem=settled, fused=False)
+    kern._state = eager._state = warm
+    got, trips = body_runs(lambda: [kern.solve_tracking(q, links[0], b=b) for b in sweep[:n]])
+    with graphs.disable_graphs():
+        want, eager_trips = body_runs(
+            lambda: [eager.solve_tracking(q, links[0], b=b) for b in sweep[:n]])
+    log(f"    solve_tracking B={B}, {n} ticks: body executions graphed {trips}, "
+        f"eager-launched {eager_trips}")
+    if trips != eager_trips:
+        raise AssertionError(f"solve_tracking: {trips} body executions graphed, "
+                             f"{eager_trips} eager-launched")
+    same_bits(torch, f"solve_tracking B={B}, {n} ticks", got, want)
+    repeated(torch, fused_mod, f"solve_tracking B={B}",
+             lambda: kern.solve_tracking(q, links[0], b=sweep[n]), 0)
+    lat = {"graphed": [], "eager-launched": []}
+    for b in sweep[n + 1:n + 1 + WHILE["p50_ticks"]]:
+        for label, solver_, off in (("graphed", kern, False), ("eager-launched", eager, True)):
+            with graphs.disable_graphs(off):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solver_.solve_tracking(q, links[0], b=b)
+                torch.cuda.synchronize()
+                lat[label].append((time.perf_counter() - t0) * 1e3)
+    p50 = {k_: statistics.median(v) for k_, v in lat.items()}
+    log(f"    solve_tracking B={B}, synchronous p50 over {WHILE['p50_ticks']} ticks in turns: "
+        f"graphed {p50['graphed']:.4f} ms, eager-launched {p50['eager-launched']:.4f} ms "
+        "(host clock)")
+    out[f"tracking_B{B}"].update(solve_tracking_p50_ms=p50["graphed"],
+                                 eager_launched_solve_tracking_p50_ms=p50["eager-launched"])
+
+    held_n = graphs.cached_graphs()
+    graphs.clear_graphs()
+    torch.cuda.empty_cache()
+    log(f"    {held_n} graphs held before clear_graphs(); phase {phase} took "
+        f"{time.time() - t_phase:.1f} s")
     return out
 
 
@@ -2320,6 +2630,13 @@ def main() -> None:
         entry = next(e for e in kernels if e["name"] == f"fused_admm/{name}")
         entry["graph"] = extra
     clock()
+
+    # ---- 19. the masked while loop as a WHILE node in the graphs ---------
+    loops = while_path(mods, 19)
+    entry = next(e for e in kernels if e["name"] == "fused_admm/two_stage")
+    entry["graph"] = loops["two_stage"]
+    clock()
+    log("    phase 19 (graphed against eager-launched): " + json.dumps(loops))
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

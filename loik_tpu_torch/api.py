@@ -90,7 +90,8 @@ class DiffIkSolver:
 
     # ------------------------------------------------------------------ #
     def solve(self, q, problem: Optional[IkProblem] = None) -> SolveResult:
-        """Stand-alone solve (cold unless params.warm_start)."""
+        """Stand-alone solve (cold unless params.warm_start); on CUDA
+        tensors one captured CUDA graph per key, as `solver.solve`."""
         if problem is not None:
             self.problem = problem
         res = solve(self.tree, self.params, q, self.problem,
@@ -142,10 +143,15 @@ class DiffIkSolver:
         only the main loop (timing harness pattern, loik-loid-optimized.hpp:
         335-361).  FK runs ONCE here; `resolve()` reuses the cached liMi —
         like the reference, whose split exists precisely to avoid re-running
-        FK."""
+        FK.  On CUDA tensors the FK is a captured CUDA graph of its own (the
+        counterpart of loik_tpu's `fwd_pass_init_jit`)."""
+        from .utils import graphs
+
         if problem is not None:
             self.problem = problem
-        self._liMi = fwd_pass_init(self.tree, _as_batch(self.tree, q))
+        tree = self.tree
+        self._liMi = graphs.run("fwd_pass_init", tree, (), lambda q: fwd_pass_init(tree, q),
+                                (_as_batch(tree, q),))
 
     def resolve(self) -> SolveResult:
         """Re-run only the main loop on the FK frozen by `solve_init`.
@@ -155,7 +161,8 @@ class DiffIkSolver:
         duals/primal persist across re-solves when the flag is set
         (loik-loid-optimized.hpp:368-455, loik-loid-data-optimized.hxx:
         114-127) — and threads the result state so later warm calls
-        (`solve_tracking`, another `resolve`) start from it."""
+        (`solve_tracking`, another `resolve`) start from it.  On CUDA
+        tensors one captured CUDA graph per key (`solve_from_fk`)."""
         if self._liMi is None:
             raise RuntimeError("call solve_init first")
         res = solve_from_fk(self.tree, self.params, self._liMi[0],
@@ -179,11 +186,13 @@ class DiffIkSolver:
         """Per-tick tracking solve: update ONE constraint target and re-solve,
         warm-starting duals from the previous tick when params.warm_start
         (the 1 kHz path, loik-loid-optimized.hpp:596-695).  On CUDA tensors
-        the tick is one launch of the fused kernel when it is eligible, the
-        constraint update, FK, prepare, reset, the launch and the result
-        run as one captured CUDA graph per key (`utils.graphs`, the
-        counterpart of loik_tpu's `_tracking_jit`), and the call returns
-        without waiting for the device."""
+        the tick is one launch of the fused kernel when it is eligible and
+        the masked while loop (a WHILE node) otherwise; the constraint
+        update, FK, prepare, reset, the launch or loop and the result run
+        as one captured CUDA graph per key (`utils.graphs`, the counterpart
+        of loik_tpu's `_tracking_jit`), and the call returns without
+        waiting for the device (eagerly as `solver.solve` is, e.g. with
+        ``params.verbose``)."""
         from .kernels.fused import _fused_body, resolve_fused
         from .utils import graphs
 
@@ -208,8 +217,8 @@ class DiffIkSolver:
             return res, None if A is None else prob.A, None if b is None else prob.b
 
         res, A_new, b_new = graphs.run(
-            "solve_tracking", self.tree, (self.params, slot, batch_tile), tick,
-            (q, self.problem, A, b, warm), capture=fused)
+            "solve_tracking", self.tree, (self.params, slot, bool(fused), batch_tile), tick,
+            (q, self.problem, A, b, warm), capture=not self.params.verbose)
         # the bound tensors stay the problem's own (problem._check_bounds)
         self.problem = self.problem.replace(
             A=self.problem.A if A_new is None else A_new,

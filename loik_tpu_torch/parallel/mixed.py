@@ -43,6 +43,7 @@ from ..params import SolverParams
 from ..problem import IkProblem, validate_problem
 from ..solver import solve
 from ..solver.state import SolveResult
+from ..utils import graphs
 
 
 def solve_mixed(
@@ -53,8 +54,8 @@ def solve_mixed(
     """Solve [(tree, q_batch, problem), ...] — one solve per topology,
     enqueued back-to-back.  Returns results in group order.
 
-    solve_fn(tree, params, q, problem) overrides the solver backend (the
-    eager `solve` by default)."""
+    solve_fn(tree, params, q, problem) overrides the solver backend
+    (`solve` by default)."""
     run = solve_fn or solve
     return [run(tree, params, q, problem) for tree, q, problem in groups]
 
@@ -116,8 +117,10 @@ class MixedPadded:
         (device-side pad + concat; padded joints sit at q = 0 = identity)."""
         return _pack_q(self.chain, self.group_njoints, qs)
 
-    def _run(self, params, q, solve_fn):
-        return (solve_fn or solve)(self.chain, params, q, self.problem)
+    def _tensors(self, qs):
+        """The group configurations as tensors on the chain's device (a
+        graph's inputs are tensors)."""
+        return [torch.as_tensor(q, device=self.chain.device) for q in qs]
 
     def solve(self, params: SolverParams, qs: Sequence[object],
               solve_fn=None) -> List[SolveResult]:
@@ -127,14 +130,28 @@ class MixedPadded:
                      solve_fn=None) -> SolveResult:
         """Solve and return the RAW super-batch result (rows in group order,
         padded dofs included).  Latency-sensitive loops should defer `unpack`
-        (its per-group slicing is a few dozen small device operations)."""
-        return self._run(params, self.pack_q(qs), solve_fn)
+        (its per-group slicing is a few dozen small device operations).
+
+        On CUDA tensors the packing and the solve (the default one's masked
+        while loop a WHILE node) run as ONE captured CUDA graph per key
+        (`utils.graphs`, the counterpart of loik_tpu's `_packed_solve_jit`);
+        a ``solve_fn`` runs after an eager packing, as its own graph where
+        it is one (a new function object would be a new key every call)."""
+        run, chain, problem = solve_fn or solve, self.chain, self.problem
+        validate_problem(chain, problem)
+        return graphs.run("solve_packed", chain, (params,),
+                          lambda qs: run(chain, params, self.pack_q(qs), problem),
+                          (self._tensors(qs),),
+                          capture=solve_fn is None and not params.verbose)
 
     def pack_q_stacked(self, qs_stacked: Sequence[object]) -> torch.Tensor:
         """[(R, Bg, nq_g)...] staged group configurations -> (R, B, N)
         prepacked super-batch q.  Staging the packing once lets
-        `solve_scan(q_packed=...)` run the solves alone."""
-        return _pack_q(self.chain, self.group_njoints, qs_stacked)
+        `solve_scan(q_packed=...)` run the solves alone.  On CUDA tensors a
+        captured CUDA graph per key (loik_tpu's `_pack_stacked_jit`)."""
+        chain, nj = self.chain, self.group_njoints
+        return graphs.run("pack_q_stacked", chain, (nj,), lambda qs: _pack_q(chain, nj, qs),
+                          (self._tensors(qs_stacked),))
 
     def solve_scan(self, params: SolverParams,
                    qs_stacked: Optional[Sequence[object]] = None, solve_fn=None,
@@ -147,16 +164,31 @@ class MixedPadded:
         solves are enqueued on the current stream one after the other; with
         a solver that runs the fused kernel nothing synchronises the host
         between reps, which separates the device rate from the latency of a
-        synchronous call.  light=True stacks only (converged, iterations)."""
+        synchronous call.  light=True stacks only (converged, iterations).
+
+        On CUDA tensors the R solves are `utils.graphs.scan` over the reps
+        (loik_tpu's `lax.scan` in `_packed_scan_jit` /
+        `_prepacked_scan_jit`): one captured tick (the packing of
+        ``qs_stacked``'s rep, and the default solve with its masked while
+        loop a WHILE node), replayed R times with nothing read on the host.
+        A ``solve_fn`` runs eagerly once per rep, as its own graph where it
+        is one."""
         if (qs_stacked is None) == (q_packed is None):
             raise ValueError("pass exactly one of qs_stacked / q_packed")
-        if q_packed is None:
-            q_packed = self.pack_q_stacked(qs_stacked)
-        else:
-            q_packed = torch.as_tensor(q_packed, device=self.chain.device)
-        outs = [_scan_outputs(self._run(params, q, solve_fn), bool(light))
-                for q in q_packed]
-        return tuple(torch.stack(col) for col in zip(*outs))
+        run, chain, problem, nj = solve_fn or solve, self.chain, self.problem, self.group_njoints
+        validate_problem(chain, problem)
+        light, packed = bool(light), q_packed is not None
+        xs = (torch.as_tensor(q_packed, device=chain.device) if packed
+              else self._tensors(qs_stacked))
+
+        def tick(carry, x, _):
+            q = x if packed else _pack_q(chain, nj, x)
+            return carry, _scan_outputs(run(chain, params, q, problem), light)
+
+        R = (xs if packed else xs[0]).shape[0]
+        _, ys = graphs.scan("solve_scan", chain, (params, light, nj), tick, (), xs, None, R,
+                            capture=solve_fn is None and not params.verbose)
+        return ys
 
     def unpack(self, res: SolveResult) -> List[SolveResult]:
         """Split a super-batch result per group (strip padded dofs/links)."""
@@ -313,8 +345,6 @@ def solve_mixed_padded(
     solve_fn that runs as a CUDA graph runs uncaptured here
     (`utils.graphs.inline`): its capture would never be replayed.
     """
-    from ..utils import graphs
-
     mp = prepare_mixed_padded(
         [(t, q.shape[0], p) for t, q, p in groups], dtype
     )

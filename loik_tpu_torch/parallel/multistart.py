@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from ..params import SolverParams
-from ..problem import IkProblem
+from ..problem import IkProblem, validate_problem
 from ..solver.solve import solve
 from .sharding import Mesh, run_sharded
 
@@ -100,11 +100,31 @@ def solve_multistart(tree, params: SolverParams, problem: IkProblem,
 
     Ranking considers ONLY converged seeds: slots beyond ``num_converged``
     carry ``error == inf`` and arbitrary q/nu; when no seed converges,
-    ``found`` is False and the caller should resample."""
+    ``found`` is False and the caller should resample.
+
+    Without a mesh, on CUDA tensors the sampler, the solve (the default
+    one's masked while loop a WHILE node), the scoring and the top k run as
+    ONE captured CUDA graph per key (loik_tpu's `_multistart_jit`).  The
+    graph draws from a generator of its own that takes ``generator``'s
+    state before each call and hands it back after (`utils.graphs.run`):
+    each call advances ``generator`` as an eager call does and draws the
+    same seeds, and a new generator object is no new capture.  A
+    ``solve_fn`` runs after an eager draw, as its own graph where it is
+    one (a new function object would be a new key every call)."""
     if not 1 <= k <= num_seeds:
         raise ValueError(f"k must be in [1, num_seeds]; got k={k}")
     if mesh is not None and num_seeds % mesh.size:
         raise ValueError(
             f"num_seeds {num_seeds} not divisible by mesh size {mesh.size}")
-    qs = tree.random_configuration((int(num_seeds),), generator=generator)
-    return multistart_from_configs(tree, params, problem, qs, k, solve_fn, mesh)
+    from ..utils import graphs
+
+    validate_problem(tree, problem)
+    num_seeds = int(num_seeds)
+
+    def body(problem, gen=None):
+        qs = tree.random_configuration((num_seeds,), generator=gen)
+        return multistart_from_configs(tree, params, problem, qs, k, solve_fn, mesh)
+
+    return graphs.run("solve_multistart", tree, (params, num_seeds, k), body, (problem,),
+                      capture=solve_fn is None and mesh is None and not params.verbose,
+                      generator=generator)

@@ -200,9 +200,10 @@ def run_sharded(tree, params: SolverParams, q, problem: IkProblem, mesh: Mesh,
     batch (a device the mesh repeats holds several blocks, as a device of
     a global array holds all its rows), with the device current and on its
     current stream.  With more than one distinct device each runs on a host
-    thread of its own, so that one card's host reads (the eager loop reads
-    `running.any()` after every body call) do not hold back the others'
-    launches; all are joined before the gather."""
+    thread of its own, so that one card's host work (its graph's copies
+    and replay, or, launched eagerly, the loop that reads `running.any()`
+    after every body call) does not hold back the others' launches; all
+    are joined before the gather."""
     run = solve_fn or solve
     q = torch.as_tensor(q)
     B = q.shape[0]

@@ -18,11 +18,13 @@ solve, integrate.  Per tick, for each problem of the batch:
 
 `loik_tpu` runs the ticks as one `lax.scan` program (`_clik_jit`); here,
 as in `solver.stream.solve_stream`, the counterpart is `utils.graphs.scan`:
-on the kernel path on CUDA tensors one tick (the pose error, the velocity
-command and its clamp, the constraint update, the solve, the self-heal,
-the integration and the history row) is captured as a CUDA graph and
-replayed once per tick, q and the solver state carried in the graph's own
-buffers; elsewhere the same tick runs as a host loop.  No value is read
+on CUDA tensors one tick (the pose error, the velocity command and its
+clamp, the constraint update, the solve (a kernel launch, or the masked
+while loop as a WHILE node), the self-heal, the integration and the
+history row) is captured as a CUDA graph and replayed once per tick, q and
+the solver state carried in the graph's own buffers; elsewhere (the CPU,
+`utils.disable_graphs()`, ``params.verbose``) the same tick runs as a host
+loop.  No value is read
 back inside the loop, so the host runs ahead of the card by the whole
 horizon.  `reached`, `pos_err` and `rot_err` come from the final pose
 error after the loop.  Each tick warm-starts from
@@ -196,9 +198,9 @@ def solve_clik(tree, params: SolverParams, q0, target_R, target_p,
              torch.zeros(B, dtype=torch.int32, device=dev))
     (q, st, nu, conv, iters), hist = graphs.scan(
         "solve_clik", tree,
-        (params, link, dt, gain, max_task_velocity, batch_tile),
+        (params, link, dt, gain, max_task_velocity, bool(fused), batch_tile),
         tick, carry, None, (target_R, target_p, problem, cold), steps,
-        capture=fused)
+        capture=not params.verbose)
     with full_f32_matmul():
         err_final = pose_error(q, target_R, target_p)
     pos_err = torch.linalg.norm(err_final[..., :3], dim=-1)

@@ -11,13 +11,16 @@ float32 stage 1 at a tolerance above it:
     quantities are O(stage-1 error).  Both float32 stages run the fused
     kernel on the GPU.  Constant motion subspaces only.
   - `solve_two_stage`: the float32 stage 1 (the fused kernel on the GPU
-    where the tree allows it), then a short warm float64 stage 2 in the
-    eager loop.  The tight-tolerance path of every tree, including those
-    with configuration-dependent subspaces (universal, spherical-ZYX and
-    mimic-pair joints).
+    where the tree allows it), then a short warm float64 stage 2 on the
+    masked while loop.  The tight-tolerance path of every tree, including
+    those with configuration-dependent subspaces (universal, spherical-ZYX
+    and mimic-pair joints).
   - `solve_delta_refined`: the delta problem in primal form with the
-    stage-1 duals kept, both float32 stages in the eager loop (as in
+    stage-1 duals kept, both float32 stages on the masked while loop (as in
     loik_tpu, where it calls the plain solve).
+
+On CUDA tensors each runs as ONE captured CUDA graph per key
+(`utils.graphs`), the masked while loop a WHILE node inside it.
 """
 
 from __future__ import annotations
@@ -104,12 +107,13 @@ def solve_delta_duals(
     'require', `kernels.fused.resolve_fused`).  Returns results in the
     original space with a full-space state (warm-startable).
 
-    On CUDA tensors with the kernel, everything after the validation (the
-    casts, both stages with their FK, prepare, reset and launch, the
-    float64 KKT evaluation, the delta problem and the recombination) runs
-    as ONE captured CUDA graph per key (`utils.graphs`, the counterpart of
-    loik_tpu's `_delta_duals_jit`); eagerly under `utils.disable_graphs()`
-    or `utils.debug_nans()`, on the CPU, and with the eager loop.
+    On CUDA tensors everything after the validation (the casts, both
+    stages with their FK, prepare, reset and launch or masked while loop,
+    the float64 KKT evaluation, the delta problem and the recombination)
+    runs as ONE captured CUDA graph per key (`utils.graphs`, the
+    counterpart of loik_tpu's `_delta_duals_jit`); eagerly under
+    `utils.disable_graphs()` or `utils.debug_nans()`, on the CPU, and with
+    ``params.verbose`` (the loop prints from the host every body call).
 
     Constant-subspace trees only, as in loik_tpu (whose answer for
     universal / spherical-ZYX / mimic-pair joints is `solve_two_stage`)."""
@@ -154,8 +158,8 @@ def solve_delta_duals(
 
     from ..utils import graphs
 
-    return graphs.run("solve_delta_duals", tree, (p1, p2, batch_tile), body,
-                      (q, problem, warm_state), capture=fused)
+    return graphs.run("solve_delta_duals", tree, (p1, p2, fused, batch_tile), body,
+                      (q, problem, warm_state), capture=not params.verbose)
 
 
 def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
@@ -292,12 +296,19 @@ def solve_two_stage(
     Iteration counts are the sum of both stages.
 
     fused_stage1: None runs stage 1 through the fused kernel wherever
-    `kernels.fused.fused_eligibility` allows it and through the eager loop
-    otherwise, silently: on a tree with configuration-dependent subspaces
+    `kernels.fused.fused_eligibility` allows it and through the masked while
+    loop otherwise, silently: on a tree with configuration-dependent subspaces
     this is THE tight-tolerance path, so there is no fused path to fall
     back from.  True requires the kernel (raises with the blocker's name
-    when it cannot run); False runs the eager loop.  On CPU tensors the
-    fused path is the eager loop.  Stage 2 is the eager float64 loop."""
+    when it cannot run); False runs the masked while loop.  On CPU tensors
+    the fused path is the eager loop.  Stage 2 is the float64 masked while
+    loop.
+
+    On CUDA tensors everything after the validation (the casts, stage 1's
+    kernel launch or while loop, the float64 stage 2) runs as ONE captured
+    CUDA graph per key (`utils.graphs`, the counterpart of loik_tpu's
+    `_two_stage_jit`); eagerly as `solve` is (``params.verbose``,
+    `utils.disable_graphs()`, `utils.debug_nans()`, the CPU)."""
     q = _as_batch(tree, q)
     validate_problem(tree, problem)
     p1 = params.replace(
@@ -325,17 +336,26 @@ def solve_two_stage(
             f"solve_two_stage: fused_stage1=True but the fused kernel cannot "
             f"run here: {reason}")
     f32, f64 = torch.float32, torch.float64
-    return _two_stage(
-        tree.astype(f32), tree.astype(f64), p1, p2, q,
-        _cast_problem(problem, f32), _cast_problem(problem, f64),
-        _cast_state(warm_state, f32) if warm_state is not None else None,
-        fused_stage1=bool(fused_stage1), batch_tile=batch_tile,
-    )
+    tree32, tree64 = tree.astype(f32), tree.astype(f64)
+    fused_stage1 = bool(fused_stage1)
+
+    def body(q, problem, warm_state):
+        return _two_stage(
+            tree32, tree64, p1, p2, q,
+            _cast_problem(problem, f32), _cast_problem(problem, f64),
+            _cast_state(warm_state, f32) if warm_state is not None else None,
+            fused_stage1=fused_stage1, batch_tile=batch_tile,
+        )
+
+    from ..utils import graphs
+
+    return graphs.run("solve_two_stage", tree, (p1, p2, fused_stage1, batch_tile), body,
+                      (q, problem, warm_state), capture=not params.verbose)
 
 
 def _two_stage(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
                fused_stage1=False, batch_tile=16) -> SolveResult:
-    """The body of loik_tpu's `_two_stage_jit`, run eagerly."""
+    """The body of loik_tpu's `_two_stage_jit`."""
     if fused_stage1:
         from ..kernels.fused import fused_loop
 
@@ -371,16 +391,37 @@ def solve_delta_refined(
     tol_abs).  Infeasibility certificates are off in delta space, where
     they are degenerate.
 
-    Both stages run the eager loop, as loik_tpu's runs its plain solve.
-    Returns results in the ORIGINAL problem space (nu = nu_hat + dnu, vis =
-    v_hat + dv); the state is the delta stage's, as in loik_tpu."""
-    f32 = torch.float32
-    q32 = _as_batch(tree, q).to(f32)
+    Both stages run the masked while loop, as loik_tpu's runs its plain
+    solve; on CUDA tensors the whole refinement is ONE captured CUDA graph
+    per key (`utils.graphs`), eagerly as `solve` is.  Returns results in
+    the ORIGINAL problem space (nu = nu_hat + dnu, vis = v_hat + dv); the
+    state is the delta stage's, as in loik_tpu."""
+    q = _as_batch(tree, q)
     validate_problem(tree, problem)
-    tree32 = tree.astype(f32)
-    prob32 = _cast_problem(problem, f32)
     p1 = params.replace(tol_abs=max(stage1_tol, params.tol_abs),
                         tol_rel=max(stage1_tol, params.tol_rel))
+    p2 = params.replace(
+        warm_start=True,
+        keep_mu_on_warm_start=True,
+        check_feasibility=False,
+        freeze_infeasible_on_warm_start=True,
+        max_iter=stage2_max_iter or max(60, params.max_iter // 2),
+    )
+    tree32 = tree.astype(torch.float32)
+    from ..utils import graphs
+
+    return graphs.run(
+        "solve_delta_refined", tree, (p1, p2),
+        lambda q, problem: _delta_refined(tree32, p1, p2, q, problem),
+        (q, problem), capture=not params.verbose)
+
+
+def _delta_refined(tree32, p1, p2, q, problem) -> SolveResult:
+    """The body of `solve_delta_refined` (loik_tpu's two `_solve_jit_delta`
+    calls and the arithmetic between them)."""
+    f32 = torch.float32
+    q32 = q.to(f32)
+    prob32 = _cast_problem(problem, f32)
     res1 = _solve_impl(tree32, p1, q32, prob32, None)
     st1 = res1.state
 
@@ -407,13 +448,6 @@ def solve_delta_refined(
         # ---- warm start at dx = 0 with the stage-1 duals -----------------
         warm = dataclasses.replace(st1, vis=torch.zeros_like(st1.vis),
                                    nu=torch.zeros_like(st1.nu), z=st1.z - st1.nu)
-        p2 = params.replace(
-            warm_start=True,
-            keep_mu_on_warm_start=True,
-            check_feasibility=False,
-            freeze_infeasible_on_warm_start=True,
-            max_iter=stage2_max_iter or max(60, params.max_iter // 2),
-        )
         # the original problem's adaptive-tolerance scales
         # (CheckConvergence, loik-loid-optimized.hxx:540-565)
         Href_vhat = (H_l @ v_hat[..., None])[..., 0]

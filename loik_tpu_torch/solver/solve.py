@@ -439,6 +439,8 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
     """One body call — K = check_interval ADMM iterations plus the
     flag/penalty transitions — as a pure SolverState -> SolverState
     function.  The CUDA kernel runs the same body per problem."""
+    from ..utils.graphs import write_row
+
     max_iter = params.max_iter
     K = params.check_interval
 
@@ -533,16 +535,16 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
             it=i,
         )
         if params.logging and max_iter > 0:
-            # row i-1 of each log, written out of place at an index that
-            # stays on the device; i > max_iter happens only on the first
-            # body call when K > max_iter, where loik_tpu's scatter drops
-            # the write: here NaN goes into a row that is still NaN
+            # row i-1 of each log, written at an index that stays on the
+            # device (in place inside a WHILE node's body, `write_row`);
+            # i > max_iter happens only on the first body call when
+            # K > max_iter, where loik_tpu's scatter drops the write: here
+            # NaN goes into a row that is still NaN
             row = (i - 1).clamp(max=max_iter - 1).reshape(1).long()
             logged = active & (i <= max_iter)
 
             def logset(arr, val):
-                return arr.index_copy(
-                    0, row, torch.where(logged, val, float("nan"))[None])
+                return write_row(arr, row, torch.where(logged, val, float("nan"))[None])
 
             for name, val in (
                 ("log_rp", new["primal_residual"]),
@@ -575,15 +577,21 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
     return body
 
 
+def _any_running(st: SolverState) -> torch.Tensor:
+    return st.running.any()
+
+
 def _solve_loop(tree, prob: PreparedProblem, params: SolverParams, st: SolverState):
     """Run the ADMM main loop + per-problem infeasibility tail solves with
     masked termination (Solve, loik-loid-optimized.hpp:368-455 +
-    InfeasibilityTailSolve :266-319).  The loop condition reads the running
-    mask on the host once per body call."""
-    body = make_loop_body(tree, prob, params)
-    while bool(st.running.any()):
-        st = body(st)
-    return st
+    InfeasibilityTailSolve :266-319) — one `utils.graphs.while_loop` over
+    the shared `make_loop_body`, the counterpart of loik_tpu's
+    `lax.while_loop`: inside an entry point's CUDA graph a WHILE node that
+    reads nothing on the host, elsewhere a host loop that reads the running
+    mask once per body call."""
+    from ..utils import graphs
+
+    return graphs.while_loop(_any_running, make_loop_body(tree, prob, params), st)
 
 
 # --------------------------------------------------------------------------- #
@@ -745,9 +753,14 @@ def solve_from_fk(tree, params: SolverParams, liMi_R, liMi_p,
     """Solve with FK frozen: takes (liMi_R, liMi_p) from `fwd_pass_init`
     instead of q, so repeated re-solves never redo the FK sweep — the
     `SolveInit()` + `Solve()` split of the reference
-    (loik-loid-optimized.hpp:335-361)."""
-    return _solve_impl(tree, params, None, problem, warm_state,
-                       liMi=(liMi_R, liMi_p))
+    (loik-loid-optimized.hpp:335-361).  Captured as `solve` is."""
+    from ..utils import graphs
+
+    def body(liMi_R, liMi_p, problem, warm_state):
+        return _solve_impl(tree, params, None, problem, warm_state, liMi=(liMi_R, liMi_p))
+
+    return graphs.run("solve_from_fk", tree, (params,), body,
+                      (liMi_R, liMi_p, problem, warm_state), capture=not params.verbose)
 
 
 def solve(tree, params: SolverParams, q, problem: IkProblem,
@@ -764,6 +777,23 @@ def solve(tree, params: SolverParams, q, problem: IkProblem,
         `params.replace(warm_start=True)` for reference-exact behavior).
 
     Returns a SolveResult with leading-batch tensors.
+
+    On CUDA tensors FK, prepare, reset, the masked while loop (a WHILE
+    node, `utils.graphs.while_loop`) and the result run as ONE captured CUDA
+    graph per key (`utils.graphs`, the counterpart of loik_tpu's
+    `_solve_jit`), with no host read.  Eagerly, the loop reading the
+    running mask on the host every body call: on the CPU, under
+    `utils.disable_graphs()` or `utils.debug_nans()`, for inputs that
+    require a gradient, and with ``params.verbose``, which prints from the
+    host every body call (loik_tpu's `jax.debug.print` has no counterpart
+    inside a graph).  ``params.logging`` is captured: its rows are written
+    at an index that stays on the device.
     """
     validate_problem(tree, problem)
-    return _solve_impl(tree, params, _as_batch(tree, q), problem, warm_state)
+    from ..utils import graphs
+
+    def body(q, problem, warm_state):
+        return _solve_impl(tree, params, q, problem, warm_state)
+
+    return graphs.run("solve", tree, (params,), body,
+                      (_as_batch(tree, q), problem, warm_state), capture=not params.verbose)

@@ -5,15 +5,16 @@ surface is the tailored `Solve(q, c_id, Ai, bi)` overload
 (loik-loid-optimized.hpp:596-695): every tick updates one constraint target
 and re-solves warm-started from the last tick's duals.  `loik_tpu` runs a
 horizon of ticks as one `lax.scan` program (`_stream_jit`); here the
-counterpart is `utils.graphs.scan`: on the kernel path on CUDA tensors ONE
-tick (the constraint update, FK, prepare, reset, the launch) is captured as
-a CUDA graph and replayed T times, the warm state carried in the graph's
-own buffers, each tick's target read on the device at a tick counter and
-its outputs written into (T, ...) buffers.  The host never waits for the
-device and enqueues one graph launch a tick.  Under
-`utils.disable_graphs()`, on the CPU and with the eager loop the same tick
-runs as a host loop, which on the kernel path enqueues every operator of
-every tick.
+counterpart is `utils.graphs.scan`: on CUDA tensors ONE tick (the
+constraint update, FK, prepare, reset, the kernel launch or the masked
+while loop as a WHILE node) is captured as a CUDA graph and replayed T
+times, the warm state carried in the graph's own buffers, each tick's
+target read on the device at a tick counter and its outputs written into
+(T, ...) buffers.  The host never waits for the device and enqueues one
+graph launch a tick.  Under `utils.disable_graphs()`, on the CPU and with
+``params.verbose`` the same tick runs as a host loop, which enqueues every
+operator of every tick (and off the kernel path reads the running mask on
+the host every body call).
 
 A controller that must react to sensors each tick uses
 `DiffIkSolver.solve_tracking`; one that can stage a horizon of targets (or
@@ -80,10 +81,11 @@ def solve_stream(tree, params: SolverParams, q, problem: IkProblem,
 
     On CUDA tensors each tick runs the fused kernel when eligible (float32 —
     except refine="delta", whose stages cast to float32 internally — motion
-    subspaces independent of q, no logging/verbose), and the stream replays
-    one captured tick T times (`utils.graphs.scan`); otherwise the eager
-    loop solves each tick, synchronising the host every iteration.
-    Per-iteration logging is unsupported (use `solve_tracking` per tick).
+    subspaces independent of q, no logging/verbose) and the masked while
+    loop otherwise, and the stream replays one captured tick T times
+    (`utils.graphs.scan`); with ``params.verbose`` the ticks run eagerly,
+    the loop synchronising the host every body call.  Per-iteration logging
+    is unsupported (use `solve_tracking` per tick).
     """
     if params.logging:
         raise ValueError(
@@ -141,8 +143,8 @@ def solve_stream(tree, params: SolverParams, q, problem: IkProblem,
 
     per_tick_q = q.ndim == 3
     st, (nu, conv, iters, rp, rd) = graphs.scan(
-        "solve_stream", tree, (params, slot, refine, batch_tile), tick,
+        "solve_stream", tree, (params, slot, refine, bool(fused), batch_tile), tick,
         warm_state, (b_seq, A_seq, q if per_tick_q else None),
-        (None if per_tick_q else q, problem), b_seq.shape[0], capture=fused)
+        (None if per_tick_q else q, problem), b_seq.shape[0], capture=not params.verbose)
     return StreamResult(nu=nu, converged=conv, iterations=iters,
                         primal_residual=rp, dual_residual=rd, state=st)

@@ -81,7 +81,9 @@ class HostReads(TorchFunctionMode):
 class FakeCapture:
     """The CPU stand-in of `graphs._capture_cuda` (the module docstring).
     ``mode`` says which call of the body runs: "capture", "replay" or
-    None (the warm-up, or an eager call)."""
+    None (the warm-up, or an eager call).  A replay runs the body as the
+    capture did: inside a capture, its entry points inline and its while
+    loops through the WHILE node's stand-in."""
 
     def __init__(self):
         self.reads = []        # host reads of each recorded call
@@ -94,10 +96,17 @@ class FakeCapture:
         finally:
             self.mode = None
 
-    def __call__(self, device, fn):
+    def __call__(self, device, fn, generators=()):
         n0 = fused.captured_launches()
+        # a capture draws nothing from the generators registered with it
+        # (torch's default one among them); a replay advances them
+        states = [g.get_state() for g in generators]
+        default = torch.random.get_rng_state()
         with HostReads() as reads:
             out = self._call("capture", fn)
+        for g, st in zip(generators, states):
+            g.set_state(st)
+        torch.random.set_rng_state(default)
         self.reads.append(reads.calls)
         launches = fused.captured_launches() - n0
         leaves = []
@@ -105,11 +114,32 @@ class FakeCapture:
 
         def replay():
             new = []
-            graphs._flatten(self._call("replay", fn), new)
+            with graphs.inline():
+                graphs._INSIDE.capturing = True
+                try:
+                    graphs._flatten(self._call("replay", fn), new)
+                finally:
+                    graphs._INSIDE.capturing = False
             for a, b in zip(leaves, new):
                 a.copy_(b)
 
-        return replay, out, launches, 0
+        return replay, out, launches, 0, 0
+
+
+def standin_while(device, pred, step, trips):
+    """The CPU stand-in of `graphs._while_node_cuda`: ``step()`` (one trip
+    of the body, returning the next predicate) runs while the predicate
+    holds, and each trip adds one to ``trips``, as the kernel that ends a
+    body on the card does.  The node reads its predicate on the device;
+    here it is read out of the sight of `HostReads`."""
+    while True:
+        with torch._C.DisableTorchFunction():
+            go = bool(pred)
+        if not go:
+            return 0
+        pred = step()
+        with torch._C.DisableTorchFunction():
+            trips.add_(1)
 
 
 @pytest.fixture
@@ -117,6 +147,7 @@ def fake_graphs(monkeypatch):
     """Graphs on CPU tensors through `FakeCapture`; yields it."""
     fake = FakeCapture()
     monkeypatch.setattr(graphs, "_capture", fake)
+    monkeypatch.setattr(graphs, "_while_node", standin_while)
     monkeypatch.setattr(graphs, "_graph_device", lambda device: True)
     graphs.clear_graphs()
     yield fake
@@ -376,7 +407,8 @@ def _variant(change, tree):
     elif change == "tree":
         tree = dataclasses.replace(tree)       # the same robot, another tree
     elif change == "warm":
-        warm = lt.solve_delta_duals(tree, params, q, problem, fused=False).state
+        with graphs.disable_graphs():       # the eager loop's solve is captured too
+            warm = lt.solve_delta_duals(tree, params, q, problem, fused=False).state
     elif change == "A shape":
         problem = problem.replace(A=problem.A[None].expand(q.shape[0], 1, 6, 6).clone())
     return tree, params, q, problem, warm
@@ -466,11 +498,21 @@ def test_eager_loop_and_cpu_run_uncaptured():
 
 
 def test_fused_false_runs_uncaptured(fake_graphs):
+    """Off the kernel the masked while loop is captured as a WHILE node
+    (`graphs.while_loop`); only a verbose solve, which prints from the host
+    every body call, runs uncaptured."""
     tree, q, problem = flagship()
     n = len(graphs.CAPTURES)
+    verbose = dict(FLAGSHIP, verbose=True)
+    lt.solve_delta_duals(tree, lt.SolverParams(**verbose), q, problem, fused=False)
+    lt.solve_stream(tree, lt.SolverParams(**dict(TRACK, verbose=True)), q, problem, 0,
+                    b_sweep(2), fused=False)
+    assert len(graphs.CAPTURES) == n
     lt.solve_delta_duals(tree, lt.SolverParams(**FLAGSHIP), q, problem, fused=False)
     lt.solve_stream(tree, lt.SolverParams(**TRACK), q, problem, 0, b_sweep(2), fused=False)
-    assert len(graphs.CAPTURES) == n
+    assert len(graphs.CAPTURES) == n + 2
+    for cap in graphs.CAPTURES[n:]:
+        assert cap.launches == 0 and cap.loops, cap
 
 
 @pytest.mark.parametrize("name,launches,ticks", [
