@@ -9,8 +9,9 @@ and the logged mirror of a kernel solve (phases 15-16), then the scale-out
 and surface paths (phase 17), all launched eagerly under
 `utils.disable_graphs()` (several phases hook Python functions that a CUDA
 graph's replay never calls); then phase 18, the same entry points as
-captured CUDA graphs, the default on the card, and phase 19, the entry
-points whose graphs hold the solver's masked while loop as a WHILE node.
+captured CUDA graphs, the default on the card, phase 19, the entry
+points whose graphs hold the solver's masked while loop as a WHILE node,
+and phase 20, the differentiable solve's training step as one graph.
 Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
@@ -30,8 +31,9 @@ Two are the fleet paths:
     problem's own motion subspaces (`S_all`);
   - tracking: `DiffIkSolver(panda_arm, ..., fused="require")` with warm
     starts at tol 1e-4, check_interval 1, fleets of B = 16384 and B = 256,
-    a target sweep of T = 100 ticks through `track_scan`: one launch per
-    tick, each tick's state the input of the next.
+    a target sweep of T = 100 ticks through `track_scan` (launched eagerly,
+    its first 25): one launch per tick, each tick's state the input of the
+    next.
 Three are the planner and position-level paths:
   - multistart: bench.py's multistart configuration, `panda_arm` with the
     flagship's task and settings, 7 batches of B = 16384 random seeds
@@ -40,8 +42,8 @@ Three are the planner and position-level paths:
     32, fused="require"), top k = 8: two launches per batch;
   - clik: `DiffIkSolver(panda_arm, ..., fused="require").reach`, B = 16384
     from the neutral configuration to FK of neutral moved by 0.35 N(0, 1)
-    tangent steps, dt 0.1, 80 ticks, gain 2, float32 at tol 1e-4,
-    check_interval 1, max_iter 100: one launch per tick;
+    tangent steps, dt 0.1, 80 ticks (launched eagerly, 30), gain 2, float32
+    at tol 1e-4, check_interval 1, max_iter 100: one launch per tick;
   - two-stage: the flagship's inputs through
     `solve_refined(method="two-stage", stage1_max_iter=32, stage2_max_iter=4)`
     (bench.py's two-stage defaults): one launch (the float32 stage 1), then
@@ -96,16 +98,17 @@ Phases (any failure raises, so the script exits nonzero):
      on at most max(1, B/100) problems and nu within 2e-5 where both
      converged.  Timed as phase 5, once more at 8192 + 8192, and as
      `solve_scan(q_packed=..., light=True)` over 20 staged super-batches;
- 11. the tracking path: `track_scan` over T=10 at B=1024 equals T eager
-     ticks on every state field and 10 calls of `solve_tracking`; for each
-     fleet, after five settling ticks, the T=100 stream launches the kernel
-     exactly T times and enqueues WITHOUT A HOST SYNCHRONISATION (counted
-     with torch's sync debug mode); converged fraction, mean warm iterations
-     and the float64 task residual of the last tick's converged problems (at
-     most 1e-3); ms per tick by CUDA events around the whole stream, the
-     host's enqueue time, the synchronous p50 of `solve_tracking`, the
-     kernel alone per tick, the device's idle share over one stream
-     (torch.profiler), and the bound;
+ 11. the tracking path: `track_scan` over T=10 at B=1024 equals T ticks of
+     the eager loop (replayed as a graph of WHILE nodes) on every state
+     field and 10 calls of `solve_tracking`; for each fleet, after five
+     settling ticks, a stream of the sweep's first 25 ticks launches the
+     kernel exactly 25 times and enqueues WITHOUT A HOST SYNCHRONISATION
+     (counted with torch's sync debug mode); converged fraction, mean warm
+     iterations and the float64 task residual of the last tick's converged
+     problems (at most 1e-3); ms per tick by CUDA events around the whole
+     stream, the host's enqueue time, the synchronous p50 of
+     `solve_tracking`, the kernel alone per tick, the device's idle share
+     over one stream (torch.profiler), and the bound;
  12. the multistart path: the launch count rises by 2 per batch; in every
      batch the errors ascend, slots beyond num_converged are inf, and every
      finite slot's float64 task residual recomputed from (q, nu) is at most
@@ -114,10 +117,11 @@ Phases (any failure raises, so the script exits nonzero):
      counted (CUDA events, median of 5 batches after a warm-up) with the
      kernel alone beside it, and the first batch's launches against the
      eager loop on their inputs, timed, with the bound;
- 13. the closed-loop IK path: exactly 80 launches and no host
+ 13. the closed-loop IK path over 30 ticks: exactly 30 launches and no host
      synchronisation over the tick loop; the kernel path against the eager
      path on every returned field after 10 ticks at B=1024 (1e-4
-     abs-or-rel, 0 expected) and after 80 ticks at B=64, with the reached
+     abs-or-rel, 0 expected) and after 30 ticks at B=64 (the eager loop's
+     ticks replayed as a graph of WHILE nodes), with the reached
      fraction no more than 1% below the eager path's; the final pos_err/rot_err
      against a float64 FK of the returned q within 1e-5; the float32
      pose-error floor; ms per tick, host enqueue per tick, kernel alone per
@@ -134,9 +138,8 @@ Phases (any failure raises, so the script exits nonzero):
      coordinates (loss = sum nu^2) against central differences on the card
      (tests/test_diff.py's bounds); at B = 1024 the second derivative
      against a central difference of the first (1e-4); the float32 gradient
-     finite and within UNROLLED's bound of the float64 one; forward and
-     forward + backward times (CUDA events, median of 5) and the peak memory
-     of a step in both types; 0 host synchronisations in a warm forward;
+     finite and within UNROLLED's bound of the float64 one (the step's
+     times, memory and host synchronisations are phase 20's);
  16. logging and the mirror: `debug_mirror(..., atol=0.0)` of the kernel's
      flagship float32 `solve_fused` at B = 16384, of the 64 problems that
      ran longest (`sample=`) and of a warm tracking tick (tol 1e-4): flags,
@@ -169,8 +172,9 @@ Phases (any failure raises, so the script exits nonzero):
      equal to `load_urdf`, and the talos main path on it equal to the one on
      the Python tree bit for bit; `entry.entry()` once and
      `entry.dryrun_multichip(torch.cuda.device_count())`; every
-     `examples/torch/0N_*.py` as a concurrent subprocess (graphs on), exit
-     code 0; the sharded multistart's launches alone from the trace of a
+     `examples/torch/0N_*.py` but 06 (phase 20 runs it) as a concurrent
+     subprocess (graphs on), exit code 0; the sharded multistart's launches
+     alone from the trace of a
      whole call;
  18. the compiled entry points as CUDA graphs (`utils.graphs`, the default
      on the card): the flagship's, solo12's and talos'
@@ -216,7 +220,25 @@ Phases (any failure raises, so the script exits nonzero):
      once, marked "a single reading"; `solve_tracking`: synchronous p50
      over 10 ticks); the share of
      the graphed call spent copying the carry back.  The two-stage
-     `kernels` entry carries its numbers under "graph".
+     `kernels` entry carries its numbers under "graph";
+ 20. the differentiable solve's training step as ONE captured CUDA graph
+     (`utils.jit`, the counterpart of `jax.jit` at the loss level; no
+     kernel launch: `solve_unrolled` runs the eager body) on phase 15's task
+     (b_z the parameter, check_interval 1, 60 body calls): the first-order
+     step (loss = sum nu^2, d/d b_z and d/d q) at B = 16384 in float32 and
+     float64, and the Newton step (loss, gradient, Hessian in b_z) at
+     B = 1024 in float64, each: the first call's time, the capture's time,
+     pool and nodes (the float32 step's beside the operators one eager step
+     dispatches); a repeated call with 0 launches and 0 host
+     synchronisations; the eager-launched step (`disable_graphs()`) with 0
+     host synchronisations, forward and backward, and its peak memory
+     beside a replayed call's; graphed equal to eager-launched bit for bit
+     on every output; a second call
+     with other inputs leaving the first result unchanged; graphed and
+     eager-launched step times in turns (CUDA events, median of 5; an
+     eager step over 2.5 s timed once, "a single reading"); then
+     examples/torch/06_differentiable_ik.py run in this process on the
+     card: six Newton steps of one `utils.jit` function, one capture.
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -247,11 +269,19 @@ PATHS = {
 }
 # the tracking path: fleets, ticks, tolerance
 TRACKING = dict(fleets=(16384, 256), T=100, tol=1e-4, settle=5)
+# phase 11 launches eagerly over the first T_eager ticks (its profiled
+# stream, recorded launches and three eager loops of B = 16384 took 126 s of
+# the 1200 s at T = 100 on NVIDIA H100 80GB HBM3, 700.00 W)
+TRACKING["T_eager"] = 25
 # the planner paths (bench.py's multistart and two-stage defaults,
 # examples/07_position_ik.py's closed loop)
 MULTISTART = dict(B=16384, seeds=100_000, k=8, stage1_max_iter=32, prefix=1024)
 CLIK = dict(B=16384, steps=80, dt=0.1, gain=2.0, tol=1e-4, max_iter=100, spread=0.35,
             prefix=1024, short=10, reached_prefix=64)
+# phase 13 launches eagerly over steps_eager ticks (the whole phase took
+# 116-149 s of the 1200 s at 30-80 ticks on NVIDIA H100 80GB HBM3, 700.00 W,
+# 70-120 s of it the eager loop's reference ticks, now replayed as a graph)
+CLIK["steps_eager"] = 30
 TWO_STAGE = dict(stage1_max_iter=32, stage2_max_iter=4, mobile_B=4096)
 # the while-loop graphs (phase 19): the mixed scan's reps; the plain-loop
 # tracking fleet, its ticks (cut from the kernel path's 100: its stragglers
@@ -400,6 +430,17 @@ def cuda_median_ms(torch, fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def event_ms(torch, fn):
+    """fn()'s result and its CUDA-event time, ms (one reading)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
 
 
 def profiled(torch, fn):
@@ -667,19 +708,22 @@ def host_split(mods, fn):
 def stage_report(mods, captured, eager_reps=3, what="stage"):
     """Each recorded launch again, kernel against its plain version on the
     same inputs: compared (at most 2e-5, expected 0), timed with CUDA events
-    and on the profiler, with the bound from these inputs.  Returns the sums
-    over the launches."""
+    (the plain version: median of ``eager_reps`` after a warm-up, or with
+    ``eager_reps`` 1 the compared run itself, one reading) and on the
+    profiler, with the bound from these inputs.  Returns the sums over the
+    launches."""
     torch, _, fused_mod, sm, _, _ = mods
     launch = fused_mod.fused_solve_loop
     out = dict(ms=0.0, plain_ms=0.0, alone_ms=0.0, err=0.0, nbytes=0, ops=0)
     for stage, (tree_, params_, prob_, st_, bt) in enumerate(captured, 1):
         ker = launch(tree_, params_, prob_, st_, bt)
-        ref = sm._solve_loop(tree_, prob_, params_, st_)
+        ref, p_ms = event_ms(torch, lambda: sm._solve_loop(tree_, prob_, params_, st_))
         err = max(a for a, _ in state_errors(torch, fused_mod._STATE_FIELDS,
                                              ker, ref).values())
         k_ms = cuda_median_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
-        p_ms = cuda_median_ms(torch, lambda: sm._solve_loop(tree_, prob_, params_, st_),
-                              reps=eager_reps)
+        if eager_reps > 1:
+            p_ms = cuda_median_ms(torch, lambda: sm._solve_loop(tree_, prob_, params_, st_),
+                                  reps=eager_reps)
         dev_ms = kernel_device_ms(torch, lambda: launch(tree_, params_, prob_, st_, bt))
         nbytes, ops = loop_bound(fused_mod, tree_, params_, prob_, st_, ker)
         b_ms, b_by = bound_ms(nbytes, ops)
@@ -989,11 +1033,15 @@ def count_syncs(torch, fn):
 
 
 def tracking_path(mods, phase):
-    """Phase 11: warm-started tracking through `DiffIkSolver`."""
+    """Phase 11: warm-started tracking through `DiffIkSolver`, launched
+    eagerly over the first `TRACKING["T_eager"]` ticks of the T-tick sweep
+    (phase 18 replays all T as a graph)."""
+    from loik_tpu_torch.utils import graphs
+
     torch, lt, fused_mod, sm, _, _ = mods
 
     dev = torch.device("cuda")
-    T, tol = TRACKING["T"], TRACKING["tol"]
+    T, tol = TRACKING["T_eager"], TRACKING["tol"]
     launch = fused_mod.fused_solve_loop
 
     def make(B, fused):
@@ -1021,7 +1069,8 @@ def tracking_path(mods, phase):
     torch.cuda.synchronize()
     if fused_mod.LAUNCHES != n:
         raise AssertionError(f"track_scan: {fused_mod.LAUNCHES} launches for {n} ticks")
-    want = make(B, False)[0].track_scan(q, sweep(n))
+    with graphs.disable_graphs(False):     # the eager loop's ticks as a graph (phase 19)
+        want = make(B, False)[0].track_scan(q, sweep(n))
     errs = state_errors(torch, fused_mod._STATE_FIELDS, got.state, want.state)
     ticker = make(B, "require")[0]
     ticks = [ticker.solve_tracking(q, ee, b=b) for b in sweep(n)]
@@ -1044,7 +1093,7 @@ def tracking_path(mods, phase):
         ee = links[0]
         for _ in range(TRACKING["settle"]):             # settle the duals
             solver.solve_tracking(q, ee, b=problem.b[0])
-        b_seq = sweep(T)
+        b_seq = sweep(TRACKING["T"])[:T]    # the T-tick sweep's first ticks
         solver.track_scan(q, b_seq)                      # warm-up stream
         torch.cuda.synchronize()
 
@@ -1219,10 +1268,14 @@ def clik_inputs(lt, torch, B):
 
 
 def clik_path(mods, phase):
-    """Phase 13: closed-loop position IK through `DiffIkSolver.reach`."""
+    """Phase 13: closed-loop position IK through `DiffIkSolver.reach`,
+    launched eagerly over `CLIK["steps_eager"]` ticks (phase 18 replays all
+    `CLIK["steps"]` as a graph)."""
+    from loik_tpu_torch.utils import graphs
+
     torch, lt, fused_mod, sm, _, _ = mods
 
-    B, T = CLIK["B"], CLIK["steps"]
+    B, T = CLIK["B"], CLIK["steps_eager"]
     tree, q0, tR, tp, ee = clik_inputs(lt, torch, B)
     params = lt.SolverParams(max_iter=CLIK["max_iter"], tol_abs=CLIK["tol"],
                              tol_rel=CLIK["tol"], check_interval=1)
@@ -1279,19 +1332,25 @@ def clik_path(mods, phase):
     if gap > 1e-5 or not bool(torch.isfinite(res.q).all()):
         raise AssertionError("clik: the reported pose error disagrees with a float64 FK")
 
-    # the kernel path against the eager path on a prefix: every field after
-    # 10 ticks (B=1024), and the reached fraction after all T (B=64: every
-    # eager tick with a problem at the iteration cap costs about a second)
+    # the kernel path against the eager loop's path on a prefix: every field
+    # after 10 ticks (B=1024), and the reached fraction after all T (B=64).
+    # The eager loop's ticks replay as a graph (its masked loop a WHILE node;
+    # graphed = launched eagerly bit for bit, phase 19 and
+    # tests/test_torch_while_replay.py): launched eagerly, a tick with a
+    # problem at the iteration cap costs 2-3 s of host time
     for steps, n in ((CLIK["short"], CLIK["prefix"]), (T, CLIK["reached_prefix"])):
+        t0 = time.perf_counter()
         got = solver.reach(q0[:n], tR[:n], tp[:n], steps=steps, **run)
-        want = eager.reach(q0[:n], tR[:n], tp[:n], steps=steps, **run)
+        with graphs.disable_graphs(False):
+            want = eager.reach(q0[:n], tR[:n], tp[:n], steps=steps, **run)
+        took = time.perf_counter() - t0
         errs = state_errors(torch, ("q", "nu", "err_history", "pos_err", "rot_err", "reached",
                                     "converged", "iterations"), got, want)
         errs.update(state_errors(torch, fused_mod._STATE_FIELDS, got.state, want.state))
         worst = max(rel for _, rel in errs.values())
         r_k, r_e = float(got.reached.double().mean()), float(want.reached.double().mean())
         log(f"    B={n} T={steps}: kernel against eager, worst abs-or-rel {worst:.3e}; reached "
-            f"{r_k:.4f} (eager {r_e:.4f})")
+            f"{r_k:.4f} (eager {r_e:.4f}); both runs {took:.1f} s")
         if worst > 1e-4 or r_k < r_e - 0.01:
             raise AssertionError(f"clik: kernel path against eager path after {steps} ticks")
 
@@ -1506,35 +1565,6 @@ def unrolled_path(mods, phase):
         f"(bound {UNROLLED['f32_rel_bound']:g})")
     if not (bool(torch.isfinite(g32)) and rel32 <= UNROLLED["f32_rel_bound"]):
         raise AssertionError("float32 gradient not finite or too far from float64")
-
-    # ---- timings and memory per dtype; host synchronisations of a forward
-    for dtype, (t_, p_, pa_, q_) in ((f32, (t32, p32, pr32, q32)),
-                                     (f64, (tree, problem, params, q))):
-        bz = torch.tensor(bz0, dtype=dtype, device=dev, requires_grad=True)
-        _, syncs = count_syncs(torch, lambda: loss(t_, pa_, q_, p_, bz))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        fwd, step = [], []
-        for rep in range(6):        # a warm-up, then 5 steps, each timed at
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()          # the end of its forward and of its backward
-            value = loss(t_, pa_, q_, p_, bz)
-            ev[1].record()
-            torch.autograd.grad(value, bz)
-            ev[2].record()
-            ev[2].synchronize()
-            if rep:
-                fwd.append(ev[0].elapsed_time(ev[1]))
-                step.append(ev[0].elapsed_time(ev[2]))
-        peak = torch.cuda.max_memory_allocated() - base
-        log(f"    {str(dtype).removeprefix('torch.')} B={B}: forward "
-            f"{statistics.median(fwd):.3f} ms, forward + backward "
-            f"{statistics.median(step):.3f} ms (CUDA events, median of 5 steps after a "
-            f"warm-up), peak memory of a step {peak / 2**30:.3f} GiB above the inputs, "
-            f"host synchronisations in a warm forward {len(syncs)}")
-        if syncs:
-            raise AssertionError("solve_unrolled synchronises the host: " + "; ".join(syncs[:5]))
 
 
 def mirror_path(mods, phase):
@@ -1778,6 +1808,8 @@ def scale_out_path(mods, phase):
                    if f.startswith("0") and f.endswith(".py"))
     if len(paths) != 7:
         raise AssertionError(f"expected examples 01-07, found {paths}")
+    # all but 06, which phase 20 runs in this process (its capture counted)
+    paths = [p for p in paths if not os.path.basename(p).startswith("06_")]
     t_ex = time.perf_counter()
     procs = [(p, subprocess.Popen([sys.executable, p], cwd=root, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)) for p in paths]
@@ -2288,16 +2320,6 @@ def while_path(mods, phase):
             f"{share:.4f} of the graphed call")
         return share
 
-    def timed(fn):
-        """fn()'s result and its CUDA-event time, ms."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = fn()
-        end.record()
-        end.synchronize()
-        return res, start.elapsed_time(end)
-
     def held(name, what, fn, other, launches=0, eager=None, eager_before=0, ticks=None):
         """One path as a graph: its first call (capture time, pool, nodes),
         a repeated call (launches counted, no host synchronisation, body
@@ -2322,7 +2344,7 @@ def while_path(mods, phase):
         trips = graphs.body_executions()
         for _ in range(eager_before):
             eager_launched()
-        (want, e_first), eager_trips = body_runs(lambda: timed(eager_launched))
+        (want, e_first), eager_trips = body_runs(lambda: event_ms(torch, eager_launched))
         log(f"    {what}: {cap.nodes} graph nodes, {len(cap.loops)} WHILE node(s) with "
             f"{[lp.body_nodes for lp in cap.loops]} body nodes; body executions graphed "
             f"{trips}, eager-launched {eager_trips}")
@@ -2463,7 +2485,7 @@ def while_path(mods, phase):
     _, first_s, cap = first_call(torch, what, long_scan)
     res, n_long = repeated(torch, fused_mod, what, long_scan, 0)
     same_bits(torch, f"{what}, its first {T} ticks", first_ticks(res), first_ticks(short))
-    _, g_ms = timed(long_scan)
+    _, g_ms = event_ms(torch, long_scan)
     log(f"    {what}: graphed {g_ms:.3f} ms (a single reading, {g_ms / T_long:.4f} ms a "
         f"tick), CUDA events; {cap.nodes} graph nodes")
     out[f"tracking_B{B}_T{T_long}"] = dict(
@@ -2508,6 +2530,168 @@ def while_path(mods, phase):
     torch.cuda.empty_cache()
     log(f"    {held_n} graphs held before clear_graphs(); phase {phase} took "
         f"{time.time() - t_phase:.1f} s")
+    return out
+
+
+def jit_path(mods, phase):
+    """Phase 20: the differentiable solve's training step as ONE captured
+    CUDA graph (`utils.jit`, the counterpart of `jax.jit` at the loss
+    level) against the same step launched eagerly (`disable_graphs()`), on
+    phase 15's task (the flagship's, b_z = 0.2 the parameter, check_interval
+    1, `UNROLLED["num_iters"]` body calls): the first-order step (loss =
+    sum nu^2, d/d b_z and d/d q) at B = `UNROLLED["B"]` in float32 and
+    float64, the Newton step (loss, gradient, Hessian) at B =
+    `UNROLLED["B_second"]` in float64; then examples/torch/06 on the card.
+    Returns, per step, its numbers."""
+    import runpy
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from loik_tpu_torch.utils import graphs
+
+    torch, lt, fused_mod, _, _, _ = mods
+    dev = torch.device("cuda")
+    n = UNROLLED["num_iters"]
+    out = {}
+
+    class Operators(TorchDispatchMode):
+        """Counts the operators dispatched while it is on, on every thread
+        it reaches (autograd's worker threads included), views too."""
+
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.count += 1
+            return func(*args, **(kwargs or {}))
+
+    def setup(dtype, B):
+        tree, _, problem, params, q = config(lt, torch, "flagship", dtype, dev, B, 1)
+        mask = (torch.arange(6, device=dev) == 2).to(dtype)
+
+        def loss(qq, bz):
+            prob = problem.replace(b=problem.b * (1 - mask) + bz * mask)
+            return (lt.solve_unrolled(tree, params, qq, prob, num_iters=n).nu ** 2).sum()
+        return q, loss
+
+    def first_order(loss):
+        def step(bz, q):
+            bz.requires_grad_()
+            q.requires_grad_()
+            value = loss(q, bz)
+            gb, gq = torch.autograd.grad(value, (bz, q))
+            return value, gb, gq
+        return step
+
+    def newton(loss, q):
+        def step(bz):
+            bz.requires_grad_()
+            value = loss(q, bz)
+            g, = torch.autograd.grad(value, bz, create_graph=True)
+            h, = torch.autograd.grad(g, bz)
+            return value, g, h
+        return step
+
+    def held(name, what, fn, args, other, count_ops=False):
+        """One step as a graph: its first call (capture time, pool, nodes),
+        a repeated call (0 launches, 0 host synchronisations), the
+        eager-launched step (its host synchronisations, forward and
+        backward, counted; its peak memory; optionally the operators it
+        dispatches) and its bits, a second call with other inputs
+        (arguments ``other``) that leaves the first result unchanged, and
+        the graphed and eager-launched times in turns (an eager step over
+        `WHILE["eager_reps_below_ms"]` is timed once)."""
+        step = lt.utils.jit(fn)
+
+        def eager():
+            with graphs.disable_graphs():
+                return step(*args)
+
+        _, first_s, cap = first_call(torch, what, lambda: step(*args))
+        res, _ = repeated(torch, fused_mod, what, lambda: step(*args), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(*args)
+        torch.cuda.synchronize()
+        g_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (want, e_first), syncs = count_syncs(torch, lambda: event_ms(torch, eager))
+        e_peak = torch.cuda.max_memory_allocated() - base
+        if syncs:
+            raise AssertionError(f"{what}: the eager step (forward and backward) synchronises "
+                                 "the host: " + "; ".join(syncs[:5]))
+        ops = None
+        if count_ops:
+            with Operators() as counter:
+                eager()
+                torch.cuda.synchronize()
+            ops = counter.count
+        log(f"    {what}: {cap.nodes} graph nodes"
+            + (f" against {ops} operators dispatched by one eager-launched step (views "
+               f"included; its backward's on autograd's worker thread too)" if ops else "")
+            + f"; the eager-launched step synchronised the host {len(syncs)} times (forward "
+            f"and backward); peak memory above the inputs: eager-launched "
+            f"{e_peak / 2**30:.3f} GiB, a replayed call {g_peak / 2**30:.3f} GiB beside the "
+            f"graph's pool of {cap.pool_bytes / 2**30:.3f} GiB")
+        same_bits(torch, what, res, want)
+        unaliased(torch, what, res, lambda: step(*other))
+        if e_first < WHILE["eager_reps_below_ms"]:
+            g_ms, e_ms = in_turns(torch, [lambda: step(*args), eager], warm=False)
+            e_how = "median of 5"
+        else:
+            (g_ms,), e_ms = in_turns(torch, [lambda: step(*args)], warm=False), e_first
+            e_how = "a single reading"
+        log(f"    {what}: graphed {g_ms:.3f} ms (median of 5), eager-launched {e_ms:.3f} ms "
+            f"({e_how}), CUDA events, in turns")
+        out[name] = dict(graph_ms=g_ms, eager_launched_ms=e_ms, eager_launched_timing=e_how,
+                         first_call_s=first_s, capture_s=cap.seconds,
+                         pool_bytes=cap.pool_bytes, nodes=cap.nodes, eager_operators=ops,
+                         graph_peak_bytes=g_peak, eager_peak_bytes=e_peak)
+        return res
+
+    B = UNROLLED["B"]
+    for dtype in (torch.float32, torch.float64):
+        q, loss = setup(dtype, B)
+        bz = torch.full((), 0.2, dtype=dtype, device=dev)
+        label = str(dtype).removeprefix("torch.")
+        log(f"[{phase}] utils.jit of the first-order step (loss = sum nu^2, d/d b_z, d/d q), "
+            f"panda_arm B={B} num_iters={n} check_interval 1 {label}:")
+        res = held(f"first_order_{label}", f"first-order step {label}", first_order(loss),
+                   (bz, q), (bz + 0.05, q.flip(0)), count_ops=dtype == torch.float32)
+        if not all(bool(torch.isfinite(t).all()) for t in res):
+            raise AssertionError("the first-order step is not finite")
+
+    B2 = UNROLLED["B_second"]
+    q, loss = setup(torch.float64, B2)
+    bz = torch.full((), 0.2, dtype=torch.float64, device=dev)
+    log(f"[{phase}] utils.jit of the Newton step (loss, gradient, Hessian in b_z), panda_arm "
+        f"B={B2} num_iters={n} check_interval 1 float64:")
+    res = held("newton_float64", "Newton step float64", newton(loss, q), (bz,), (bz + 0.05,))
+    if not all(bool(torch.isfinite(t).all()) for t in res):
+        raise AssertionError("the Newton step is not finite")
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch",
+                        "06_differentiable_ik.py")
+    log(f"[{phase}] {os.path.relpath(path)} on the card (six Newton steps, one graph):")
+    captures = len(graphs.CAPTURES)
+    argv, sys.argv = sys.argv, [path, "--device", str(dev)]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    made = graphs.CAPTURES[captures:]
+    log(f"    example 06: {took:.3f} s with {len(made)} capture(s) "
+        + ", ".join(f"{c.tag} {c.seconds:.3f} s, {c.nodes} nodes" for c in made))
+    if [c.tag for c in made] != ["step_fn"]:
+        raise AssertionError(f"example 06: captures {[c.tag for c in made]}, expected one "
+                             "of step_fn")
+    out["example_06"] = dict(seconds=took, capture_s=made[0].seconds, nodes=made[0].nodes)
     return out
 
 
@@ -2637,6 +2821,11 @@ def main() -> None:
     entry["graph"] = loops["two_stage"]
     clock()
     log("    phase 19 (graphed against eager-launched): " + json.dumps(loops))
+
+    # ---- 20. the differentiable solve's training step as one graph -------
+    steps = jit_path(mods, 20)
+    clock()
+    log("    phase 20 (graphed against eager-launched): " + json.dumps(steps))
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,6 +6,10 @@ autograd (solver/diff.py; the eager body, on whatever device its inputs
 are on).  Demo: find the commanded end-effector velocity b_z whose solved
 joint motion matches a demonstrated joint velocity profile, the inner
 pattern of learning-from-demonstration pipelines that embed an IK layer.
+Each Newton step (value, gradient and Hessian of the loss) is one
+`utils.jit` function, as the JAX example's `step_fn` is one `jax.jit`: on
+the card it is captured once as a CUDA graph and replayed; on the CPU it
+runs eagerly.
 
 Run:  python examples/torch/06_differentiable_ik.py [--device cpu] [--quick]
 """
@@ -19,7 +23,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir, os.pardir)
 import numpy as np
 import torch
 
-from loik_tpu_torch import SolverParams, make_problem, solve_unrolled
+from loik_tpu_torch import SolverParams, make_problem, solve_unrolled, utils
 from loik_tpu_torch.model import robots
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -38,10 +42,13 @@ params = SolverParams()
 q = tree.random_configuration((8,), generator=torch.Generator(device=dev).manual_seed(0))
 
 
+mask = (torch.arange(6, device=dev) == 2).to(tree.dtype)    # b_z in the task row
+
+
 def with_bz(bz):
-    b = torch.zeros((1, 6), dtype=tree.dtype, device=dev)
-    return problem.replace(b=b.index_put((torch.tensor([0]), torch.tensor([2])),
-                                         bz.reshape(1)))
+    """The problem with b[0, 2] = bz, a 0-d tensor (differentiable), made on
+    the device: a graph cannot copy host data to the card."""
+    return problem.replace(b=problem.b * (1 - mask) + bz * mask)
 
 
 # "demonstration": the joint velocities produced by a hidden target
@@ -56,15 +63,22 @@ def loss(bz):
     return ((out.nu - nu_demo) ** 2).mean()
 
 
-# Newton steps: autograd gives the curvature through the solver too
+@utils.jit
+def step_fn(bz):
+    """(loss, gradient, Hessian) at bz: autograd gives the curvature
+    through the solver too."""
+    bz.requires_grad_()
+    val = loss(bz)
+    (g,) = torch.autograd.grad(val, bz, create_graph=True)
+    (h,) = torch.autograd.grad(g, bz)
+    return val, g, h
+
+
 bz = torch.tensor(0.5, dtype=tree.dtype, device=dev)
 for step in range(2 if args.quick else 6):
-    x = bz.detach().requires_grad_()
-    val = loss(x)
-    (g,) = torch.autograd.grad(val, x, create_graph=True)
-    (h,) = torch.autograd.grad(g, x)
-    bz = x.detach() - g.detach() / torch.clamp(h, min=1e-8)
-    print(f"step {step}: loss {float(val.detach()):.3e}  b_z {float(bz):+.5f}")
+    val, g, h = step_fn(bz)
+    bz = bz - g / torch.clamp(h, min=1e-8)             # Newton step
+    print(f"step {step}: loss {float(val):.3e}  b_z {float(bz):+.5f}")
 
 print(f"\nrecovered b_z = {float(bz):+.5f}  (true {b_true:+.5f})")
 assert abs(float(bz) - b_true) < 1e-3

@@ -52,7 +52,9 @@ def solve_unrolled(tree, params: SolverParams, q, problem: IkProblem,
     ``max_iter = num_iters + 2`` (as in loik_tpu) freezes problems after
     about ``num_iters`` iterations.
 
-    No host synchronisation: nothing is read back from the device."""
+    No host synchronisation: nothing is read back from the device, in the
+    forward or the backward, so a training step built on it can be
+    captured whole as one CUDA graph with `loik_tpu_torch.utils.jit`."""
     if params.logging or params.verbose:
         raise ValueError("solve_unrolled supports neither logging nor "
                          "verbose (use solve)")
@@ -74,6 +76,8 @@ def solve_unrolled(tree, params: SolverParams, q, problem: IkProblem,
         body = make_loop_body(tree, prob, params)
         for _ in range(num_iters):
             # non-reentrant: takes the state dataclass and supports
-            # torch.autograd.grad and double backward
-            st = checkpoint(body, st, use_reentrant=False)
+            # torch.autograd.grad and double backward.  The body draws no
+            # random numbers, so no generator state is saved or restored:
+            # a CUDA graph capture (`utils.jit`) allows neither
+            st = checkpoint(body, st, use_reentrant=False, preserve_rng_state=False)
     return _result(tree, st)

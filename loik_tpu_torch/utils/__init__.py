@@ -1,5 +1,5 @@
 from .checkpoint import load_state, save_state
-from .graphs import clear_graphs, disable_graphs
+from .graphs import clear_graphs, disable_graphs, jit
 from .observability import (MirrorMismatch, Timer, debug_mirror,
                             debug_nans, no_recompile_guard, trace)
 
@@ -14,4 +14,5 @@ __all__ = [
     "load_state",
     "disable_graphs",
     "clear_graphs",
+    "jit",
 ]

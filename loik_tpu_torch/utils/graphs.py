@@ -29,6 +29,10 @@ calls:
   the body is captured once and the node runs it on the card while the
   condition, set by a one-thread kernel from ``cond`` of the carry, holds;
   nothing is read on the host.  Elsewhere it is a host loop.
+- `jit(fn)`: the counterpart of `jax.jit` for a user's function of
+  tensors, at the loss level: ``fn``'s whole call, the backward of
+  `torch.autograd.grad` inside it included, as one graph keyed like
+  `run`'s (the differentiable solve's training step).
 
 The key is the jit cache key: the tree by identity (held by a weak
 reference: the tree's graphs go when it does), the entry point's ``tag``
@@ -238,12 +242,12 @@ def _map(fn, x):
 
 
 def _fresh(leaves):
-    """Clones of ``leaves``; a tensor listed twice (a result field that is
-    also a state field) is cloned once."""
+    """Detached clones of ``leaves``; a tensor listed twice (a result field
+    that is also a state field) is cloned once."""
     memo: dict = {}
     for t in leaves:
         if id(t) not in memo:
-            memo[id(t)] = t.clone()
+            memo[id(t)] = t.detach().clone()
     return [memo[id(t)] for t in leaves]
 
 
@@ -272,7 +276,7 @@ def _graph_device(device: torch.device) -> bool:
 def _graphable(leaves) -> bool:
     from ..kernels import fused
 
-    if _DISABLED or fused.CHECK_NANS or getattr(_INSIDE, "active", False):
+    if _DISABLED or fused.CHECK_NANS or getattr(_INSIDE, "active", False) or capturing():
         return False
     if not leaves or not _graph_device(leaves[0].device):
         return False
@@ -402,8 +406,16 @@ _BODY: dict = {}
 
 def capturing() -> bool:
     """Whether this thread is capturing an entry point's graph now (a
-    `while_loop` then becomes a WHILE node)."""
-    return getattr(_INSIDE, "capturing", False)
+    `while_loop` then becomes a WHILE node), or enqueues work into a
+    capture under way: autograd's worker thread, which runs the backward
+    of a `jit` function's capture on the capturing stream, sees the
+    capture here (its entry points run inline, no graph is destroyed)."""
+    return getattr(_INSIDE, "capturing", False) or _stream_capturing()
+
+
+def _stream_capturing() -> bool:
+    """Whether this thread's current CUDA stream is being captured."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
 
 def _trips(device) -> torch.Tensor:
@@ -465,6 +477,9 @@ def while_loop(cond: Callable, body: Callable, carry):
             with _LOCK:
                 _HOST_TRIPS[0] += 1
         return carry
+    if not getattr(_INSIDE, "capturing", False):
+        raise RuntimeError("while_loop: a WHILE node is added only on the thread that "
+                           "captures, not in a captured backward")
 
     leaves: list = []
     spec = _flatten(carry, leaves)
@@ -666,7 +681,10 @@ class _Call:
     def __init__(self, tag, body, spec, leaves, generator=None):
         self.lock = threading.Lock()
         self.static = _static(leaves)
-        args = _unflatten(spec, iter(self.static))
+        # the body gets detached aliases of the buffers, the same ones in
+        # the warm-up and the capture: a `jit` function that marks an input
+        # to be differentiated leaves the buffers as they are
+        args = _unflatten(spec, iter([t.detach() for t in self.static]))
         dev = leaves[0].device
         self.rng = None if generator is None else torch.Generator(device=dev)
         given, own = ((), ()) if generator is None else ((generator,), (self.rng,))
@@ -675,6 +693,10 @@ class _Call:
             _bytes(self.static), self, own)
         self.out = []
         self.out_spec = _flatten(out, self.out)
+        # detached (a tensor listed twice stays one): the capture's autograd
+        # record goes, its buffers stay in the graph's pool
+        memo: dict = {}
+        self.out = [memo.setdefault(id(t), t.detach()) for t in self.out]
         warm_leaves: list = []
         _flatten(warm, warm_leaves)
         self.first = _unflatten(self.out_spec, iter(_fresh(warm_leaves)))
@@ -723,6 +745,75 @@ def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
 
     g, result = _graph(tag, tree, (tag, statics, spec, bool(given)), build)
     return g(leaves, generator) if result is _NONE else result
+
+
+def jit(fn: Callable) -> Callable:
+    """``fn`` as a captured CUDA graph: the counterpart of `jax.jit` for a
+    function of tensors.  The training step of the differentiable solve is
+    the case it is for: a function that marks what it differentiates
+    (``x.requires_grad_()``), calls `solve_unrolled` and
+    `torch.autograd.grad` (second order too, with ``create_graph=True``)
+    and returns the value and its derivatives, as
+    ``jax.jit(lambda x: (loss(x), jax.grad(loss)(x)))`` does::
+
+        @loik_tpu_torch.utils.jit
+        def step(bz):
+            bz.requires_grad_()
+            value = loss(bz)
+            g, = torch.autograd.grad(value, bz, create_graph=True)
+            h, = torch.autograd.grad(g, bz)
+            return value, g, h
+
+    On CUDA tensors the first call of a key runs ``fn`` (its result is that
+    call's) and then captures ONE call of it as a CUDA graph, forward and
+    backward alike (autograd's worker thread runs the backward on the
+    capturing stream); later calls copy the tensors into the graph's static
+    input buffers and replay it.  The key: ``fn`` by identity (its graphs
+    go when it does), the structure of the arguments (tensors, None,
+    tuples, lists and dataclasses of them), each tensor's device, dtype and
+    shape, and the value of every other argument (hashable: a static,
+    baked into the graph).  ``fn`` gets detached leaves that share the
+    buffers' memory; the results are detached fresh tensors, as `run`'s.
+    Tensors that ``fn`` closes over are read where they lie at every
+    replay: they live as long as ``fn``, and a new value must be written
+    into them in place, not bound to the name.  ``fn`` reads nothing back
+    to the host (no ``.item()``, ``bool(t)`` or copy of host data to the
+    card), as every captured body.
+
+    Eagerly on CPU tensors, under `disable_graphs()` and while `debug_nans`
+    is on: ``fn`` on detached aliases of the arguments, its results
+    detached.  When an argument already requires a gradient (under grad
+    mode), ``fn(*args)`` as it is, eagerly: a graph would cut that
+    argument's autograd record, and the results could not be
+    differentiated back to it.  A failed capture raises under ``fn``'s
+    name; it never runs eagerly instead.  Each capture is logged in
+    `CAPTURES`; `clear_graphs()` frees the graphs."""
+    tag = getattr(fn, "__qualname__", None) or repr(fn)
+
+    def body(*args):
+        leaves: list = []
+        _flatten(args, leaves)
+        for t in leaves:            # the capture finds them as the warm-up did
+            t.requires_grad_(False)
+        return fn(*args)
+
+    @functools.wraps(fn)
+    def jitted(*args):
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return fn(*args)
+        if not _graphable(leaves):
+            return _map(torch.Tensor.detach, fn(*_map(torch.Tensor.detach, args)))
+
+        def build():
+            g = _Call(tag, body, spec, leaves)
+            return g, g.first
+
+        g, result = _graph(tag, fn, spec, build)
+        return g(leaves) if result is _NONE else result
+
+    return jitted
 
 
 def _stack(ys):

@@ -570,3 +570,109 @@ def test_solve_unrolled_on_card_equals_cpu_float64():
     assert torch.equal(it_c, it_h)
     torch.testing.assert_close(nu_c, nu_h, rtol=0, atol=1e-10)
     torch.testing.assert_close(g_c, g_h, rtol=1e-8, atol=1e-10)
+
+
+def _unrolled_step(order, dtype, B=256, num_iters=10):
+    """(the training step of `utils.jit`'s tests on the card, its arguments,
+    other arguments): the flagship task with b_z the parameter,
+    check_interval 1; "first": (sum nu^2, d/d b_z, d/d q), "newton": (the
+    loss, its gradient and Hessian in b_z)."""
+    tree, _, problem, params, q = chip_smoke.config(
+        lt, torch, "flagship", dtype, torch.device("cuda"), B, 1)
+    mask = (torch.arange(6, device="cuda") == 2).to(dtype)
+
+    def loss(qq, bz):
+        prob = problem.replace(b=problem.b * (1 - mask) + bz * mask)
+        return (lt.solve_unrolled(tree, params, qq, prob, num_iters=num_iters).nu ** 2).sum()
+
+    bz = torch.full((), 0.2, dtype=dtype, device="cuda")
+    if order == "first":
+        def step(b, qq):
+            b.requires_grad_()
+            qq.requires_grad_()
+            value = loss(qq, b)
+            return (value,) + torch.autograd.grad(value, (b, qq))
+        return step, (bz, q), (bz + 0.05, q.flip(0))
+
+    def step(b):
+        b.requires_grad_()
+        value = loss(q, b)
+        g, = torch.autograd.grad(value, b, create_graph=True)
+        h, = torch.autograd.grad(g, b)
+        return value, g, h
+    return step, (bz,), (bz + 0.05,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("order", ["first", "newton"])
+def test_jit_training_step_on_card_equals_eager(order, dtype):
+    """`utils.jit` of the differentiable solve's training step on the card:
+    one capture, then replays; the first call, a replay and a replay with
+    other inputs equal the same step launched eagerly, bit for bit, and a
+    second call leaves the first result unchanged."""
+    from loik_tpu_torch.utils import graphs
+
+    _need_card()
+    fn, args, other = _unrolled_step(order, dtype)
+    step = lt.utils.jit(fn)
+    n = len(graphs.CAPTURES)
+    got = [step(*args), step(*args)]
+    kept = [t.clone() for t in got[1]]
+    got.append(step(*other))
+    assert len(graphs.CAPTURES) == n + 1 and graphs.CAPTURES[-1].nodes > 0
+    with graphs.disable_graphs():
+        want = [step(*args), step(*other)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, [want[0], want[0], want[1]]):
+        for x, y in zip(g, w):
+            assert torch.equal(x, y)
+    assert all(torch.equal(a, b) for a, b in zip(got[1], kept))
+    assert not torch.equal(got[1][1], got[2][1])
+
+
+@pytest.mark.cuda
+def test_jit_backward_runs_inside_the_capture():
+    """The backward of a `utils.jit` function runs on autograd's worker
+    thread, on the capturing stream: there the graph layer sees the capture
+    (`graphs.capturing()`, no entry point captures a graph of its own), its
+    operators land in the graph (a replay recomputes the gradient), and
+    the function's graphs go when the function does."""
+    import gc
+    import threading
+
+    from loik_tpu_torch.utils import graphs
+
+    _need_card()
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 3.0
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append((threading.get_ident(), graphs.capturing(), graphs._graphable([g])))
+            return g * 3.0
+
+    def fn(x):
+        x.requires_grad_()
+        y = (Probe.apply(x) ** 2).sum()
+        return torch.autograd.grad(y, x)[0]
+
+    step = lt.utils.jit(fn)
+    x = torch.arange(4.0, device="cuda")
+    n = graphs.cached_graphs()
+    step(x)                                   # the warm-up, then the capture
+    assert graphs.cached_graphs() == n + 1
+    (_, warm_capturing, _), (tid, capturing, graphable) = seen
+    assert not warm_capturing
+    assert capturing and not graphable and tid != threading.get_ident()
+    got = step(x + 1)                         # a replay: no Python backward
+    torch.cuda.synchronize()
+    assert len(seen) == 2 and torch.equal(got, 18.0 * (x + 1))
+    del step, fn
+    gc.collect()
+    graphs.cached_graphs()                    # drains the dropped graphs
+    assert graphs.cached_graphs() == n
