@@ -224,11 +224,16 @@ Phases (any failure raises, so the script exits nonzero):
  20. the differentiable solve's training step as ONE captured CUDA graph
      (`utils.jit`, the counterpart of `jax.jit` at the loss level; no
      kernel launch: `solve_unrolled` runs the eager body) on phase 15's task
-     (b_z the parameter, check_interval 1, 60 body calls): the first-order
-     step (loss = sum nu^2, d/d b_z and d/d q) at B = 16384 in float32 and
-     float64, and the Newton step (loss, gradient, Hessian in b_z) at
-     B = 1024 in float64, each: the first call's time, the capture's time,
-     pool and nodes (the float32 step's beside the operators one eager step
+     (b_z the parameter, check_interval 1, 60 body calls).  First, traced
+     numbers: a small `jit` function of a card tensor and a Python float,
+     called with 100 distinct floats, is one capture, equals the call
+     under `disable_graphs()` bit for bit each time, and its 99 calls with
+     new floats make 0 host synchronisations.  Then the first-order step
+     (loss = sum w nu^2 with a Python float weight w = 1.0, d/d b_z and
+     d/d q) at B = 16384 in float32 and float64, and the Newton step (loss,
+     gradient, Hessian in b_z) at B = 1024 in float64, each: the first
+     call's time, the capture's time split into warm-up, record and
+     instantiate, pool and nodes (the float32 step's beside the operators one eager step
      dispatches); a repeated call with 0 launches and 0 host
      synchronisations; the eager-launched step (`disable_graphs()`) with 0
      host synchronisations, forward and backward, and its peak memory
@@ -236,7 +241,9 @@ Phases (any failure raises, so the script exits nonzero):
      on every output; a second call
      with other inputs leaving the first result unchanged; graphed and
      eager-launched step times in turns (CUDA events, median of 5; an
-     eager step over 2.5 s timed once, "a single reading"); then
+     eager step over 2.5 s timed once, "a single reading"); the float32
+     step once more at w = 0.5: no new capture, value and gradients 0.5 x
+     those at w = 1.0 bit for bit; then
      examples/torch/06_differentiable_ik.py run in this process on the
      card: six Newton steps of one `utils.jit` function, one capture.
 
@@ -2009,7 +2016,9 @@ def first_call(torch, what, fn):
         raise AssertionError(f"{what}: {len(graphs.CAPTURES) - n} captures, expected 1")
     cap = graphs.CAPTURES[-1]
     log(f"    {what}: first call {secs:.3f} s ({cap.tag}: warm-up and capture "
-        f"{cap.seconds:.3f} s), graph pool {cap.pool_bytes / 2**20:.1f} MiB "
+        f"{cap.seconds:.3f} s: warm-up {cap.warm_seconds:.3f}, record "
+        f"{cap.record_seconds:.3f}, instantiate {cap.instantiate_seconds:.3f}), graph pool "
+        f"{cap.pool_bytes / 2**20:.1f} MiB "
         f"(memory_reserved across the capture), static inputs "
         f"{cap.static_bytes / 2**20:.2f} MiB, {cap.launches} kernel launch(es) a replay")
     return res, secs, cap
@@ -2570,16 +2579,19 @@ def jit_path(mods, phase):
         tree, _, problem, params, q = config(lt, torch, "flagship", dtype, dev, B, 1)
         mask = (torch.arange(6, device=dev) == 2).to(dtype)
 
-        def loss(qq, bz):
+        def loss(qq, bz, w=None):
             prob = problem.replace(b=problem.b * (1 - mask) + bz * mask)
-            return (lt.solve_unrolled(tree, params, qq, prob, num_iters=n).nu ** 2).sum()
+            sq = lt.solve_unrolled(tree, params, qq, prob, num_iters=n).nu ** 2
+            return (sq if w is None else w * sq).sum()
         return q, loss
 
     def first_order(loss):
-        def step(bz, q):
+        """The first-order step, loss = sum w nu^2 with a weight w (a
+        Python float: traced, a 0-d float64 tensor in the graph)."""
+        def step(bz, q, w):
             bz.requires_grad_()
             q.requires_grad_()
-            value = loss(q, bz)
+            value = loss(q, bz, w)
             gb, gq = torch.autograd.grad(value, (bz, q))
             return value, gb, gq
         return step
@@ -2601,7 +2613,8 @@ def jit_path(mods, phase):
         dispatches) and its bits, a second call with other inputs
         (arguments ``other``) that leaves the first result unchanged, and
         the graphed and eager-launched times in turns (an eager step over
-        `WHILE["eager_reps_below_ms"]` is timed once)."""
+        `WHILE["eager_reps_below_ms"]` is timed once).  Returns the
+        repeated call's result and the `jit` function."""
         step = lt.utils.jit(fn)
 
         def eager():
@@ -2648,28 +2661,48 @@ def jit_path(mods, phase):
             f"({e_how}), CUDA events, in turns")
         out[name] = dict(graph_ms=g_ms, eager_launched_ms=e_ms, eager_launched_timing=e_how,
                          first_call_s=first_s, capture_s=cap.seconds,
+                         warm_s=cap.warm_seconds, record_s=cap.record_seconds,
+                         instantiate_s=cap.instantiate_seconds,
                          pool_bytes=cap.pool_bytes, nodes=cap.nodes, eager_operators=ops,
                          graph_peak_bytes=g_peak, eager_peak_bytes=e_peak)
-        return res
+        return res, step
+
+    traced_numbers(torch, lt, graphs, dev, phase)
 
     B = UNROLLED["B"]
     for dtype in (torch.float32, torch.float64):
         q, loss = setup(dtype, B)
         bz = torch.full((), 0.2, dtype=dtype, device=dev)
         label = str(dtype).removeprefix("torch.")
-        log(f"[{phase}] utils.jit of the first-order step (loss = sum nu^2, d/d b_z, d/d q), "
+        log(f"[{phase}] utils.jit of the first-order step (loss = sum w nu^2 at w = 1.0, d/d b_z, "
+            f"d/d q), "
             f"panda_arm B={B} num_iters={n} check_interval 1 {label}:")
-        res = held(f"first_order_{label}", f"first-order step {label}", first_order(loss),
-                   (bz, q), (bz + 0.05, q.flip(0)), count_ops=dtype == torch.float32)
+        res, step = held(f"first_order_{label}", f"first-order step {label}",
+                         first_order(loss), (bz, q, 1.0), (bz + 0.05, q.flip(0), 1.0),
+                         count_ops=dtype == torch.float32)
         if not all(bool(torch.isfinite(t).all()) for t in res):
             raise AssertionError("the first-order step is not finite")
+        if dtype == torch.float32:
+            # the weight is traced: w = 0.5 replays the w = 1.0 graph, and
+            # halves value and gradients exactly (a power of two through a
+            # backward linear in it), so no second eager step is needed
+            captures = len(graphs.CAPTURES)
+            half = step(bz, q, 0.5)
+            torch.cuda.synchronize()
+            bad = bits_equal(torch, half, tuple(0.5 * t for t in res))
+            log(f"    first-order step {label} at w = 0.5: {len(graphs.CAPTURES) - captures} "
+                f"new captures; against 0.5 x the w = 1.0 results, {len(bad)} of "
+                f"{len(leaves(half))} tensors differ")
+            if len(graphs.CAPTURES) != captures or bad:
+                raise AssertionError(f"the step at w = 0.5: {len(graphs.CAPTURES) - captures} "
+                                     f"captures, tensors {bad} not 0.5 x those at w = 1.0")
 
     B2 = UNROLLED["B_second"]
     q, loss = setup(torch.float64, B2)
     bz = torch.full((), 0.2, dtype=torch.float64, device=dev)
     log(f"[{phase}] utils.jit of the Newton step (loss, gradient, Hessian in b_z), panda_arm "
         f"B={B2} num_iters={n} check_interval 1 float64:")
-    res = held("newton_float64", "Newton step float64", newton(loss, q), (bz,), (bz + 0.05,))
+    res, _ = held("newton_float64", "Newton step float64", newton(loss, q), (bz,), (bz + 0.05,))
     if not all(bool(torch.isfinite(t).all()) for t in res):
         raise AssertionError("the Newton step is not finite")
 
@@ -2693,6 +2726,42 @@ def jit_path(mods, phase):
                              "of step_fn")
     out["example_06"] = dict(seconds=took, capture_s=made[0].seconds, nodes=made[0].nodes)
     return out
+
+
+def traced_numbers(torch, lt, graphs, dev, phase):
+    """Phase 20 (i): `utils.jit` traces Python floats as `jax.jit` does: a
+    small function of a card tensor and a float, called with 100 distinct
+    floats, is one capture; each call equals the same call under
+    `disable_graphs()` (the same 0-d float64 tensor) bit for bit; the 99
+    calls with new floats make the host wait 0 times.  Logs how many of
+    the 100 differ from the function called with the raw float (torch
+    divides by a Python float as a multiply by its reciprocal)."""
+    def f(x, s):
+        return x / s + s * x, (x * s).sum()
+
+    import numpy as np
+
+    step = lt.utils.jit(f)
+    x = torch.as_tensor(np.random.default_rng(11).normal(size=(4096,)), device=dev)
+    vals = np.random.default_rng(12).uniform(0.1, 10.0, 100).tolist()
+    log(f"[{phase}] utils.jit traces Python floats: f(x, s) = (x / s + s x, sum x s), x float64 "
+        f"(4096,), 100 distinct floats:")
+    captures = len(graphs.CAPTURES)
+    got = [step(x, vals[0])]
+    torch.cuda.synchronize()
+    rest, syncs = count_syncs(torch, lambda: [step(x, s) for s in vals[1:]])
+    torch.cuda.synchronize()
+    got += rest
+    made = len(graphs.CAPTURES) - captures
+    with graphs.disable_graphs():
+        bad = [i for i, s in enumerate(vals) if bits_equal(torch, got[i], step(x, s))]
+    raw = sum(bool(bits_equal(torch, got[i], f(x, s))) for i, s in enumerate(vals))
+    log(f"    {made} capture(s); {len(bad)} of 100 calls differ from disable_graphs() in a bit; "
+        f"the 99 calls with new floats synchronised the host {len(syncs)} times; {raw} of "
+        f"100 differ in some bit from f called with the raw float")
+    if made != 1 or bad or syncs:
+        raise AssertionError(f"traced floats: {made} captures, calls {bad[:5]} differ from "
+                             f"eager, host syncs " + "; ".join(syncs[:5]))
 
 
 def frame_report(mods):

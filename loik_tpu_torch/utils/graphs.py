@@ -29,20 +29,25 @@ calls:
   the body is captured once and the node runs it on the card while the
   condition, set by a one-thread kernel from ``cond`` of the carry, holds;
   nothing is read on the host.  Elsewhere it is a host loop.
-- `jit(fn)`: the counterpart of `jax.jit` for a user's function of
-  tensors, at the loss level: ``fn``'s whole call, the backward of
-  `torch.autograd.grad` inside it included, as one graph keyed like
-  `run`'s (the differentiable solve's training step).
+- `jit(fn, static_argnums, static_argnames)`: the counterpart of
+  `jax.jit` for a user's function of tensors and numbers, at the loss
+  level: ``fn``'s whole call, the backward of `torch.autograd.grad` inside
+  it included, as one graph (the differentiable solve's training step).
 
 The key is the jit cache key: the tree by identity (held by a weak
 reference: the tree's graphs go when it does), the entry point's ``tag``
 and ``statics`` (the `SolverParams` and every other argument the body
-bakes in, such as `batch_tile`, the stage caps or a tick count), and the
-structure of the inputs with the device, dtype and shape of every tensor,
-including which optional inputs were given.  Constants in the inputs
-(constraint links) are part of it too.  Everything the fused kernel's
-launch bakes into its graph node (`kernels.fused._LoikConfig`) follows from
-these.
+bakes in, such as `batch_tile`, the stage caps or a tick count: they mirror
+`loik_tpu`'s ``static_argnums`` one for one), and the structure of the
+inputs with the device, dtype and shape of every tensor, including which
+optional inputs were given.  Constants in the inputs (constraint links) are
+part of it too.  Everything the fused kernel's launch bakes into its graph
+node (`kernels.fused._LoikConfig`) follows from these.  `jit` keys a
+function the same way (``fn`` by identity), but traces the Python and numpy
+numbers among its arguments as `jax.jit` does: each is keyed by its type
+only and reaches the graph as a 0-d tensor, so a new value replays; only
+the arguments named by ``static_argnums`` / ``static_argnames`` are keyed by
+value and baked in.
 
 Semantics, as JAX's:
 - On by default on the card; `disable_graphs()` (the counterpart of
@@ -83,12 +88,15 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import inspect
 import threading
 import time
 import weakref
 from typing import Callable, List
 
+import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 # process-wide, like jax.disable_jit: a sharded solve's host threads see it
 _DISABLED = False
@@ -114,10 +122,17 @@ _INSIDE = threading.local()
 
 @dataclasses.dataclass(frozen=True)
 class Capture:
-    """One capture: the entry point, its wall time (warm-up and capture),
-    the device memory the graph's private pool reserved, the bytes of its
-    static input buffers, the fused-kernel launches one replay makes, its
-    nodes (the WHILE nodes' bodies included) and its WHILE nodes."""
+    """One capture: the entry point, its wall time (``seconds``, the sum of
+    its three parts), the device memory the graph's private pool reserved,
+    the bytes of its static input buffers, the fused-kernel launches one
+    replay makes, its nodes (the WHILE nodes' bodies included) and its
+    WHILE nodes.  The parts: ``warm_seconds``, the eager warm-up (and
+    loading what a WHILE node launches); ``record_seconds``, the body
+    recorded under `torch.cuda.graph` with the WHILE bodies' own captures,
+    from the capture's start (a device synchronisation and emptying the
+    allocator's cache) to its end (`cudaStreamEndCapture`);
+    ``instantiate_seconds``, `cudaGraphInstantiate` (the capture keeps its
+    graph, ``CUDAGraph(keep_graph=True)``, and instantiates it apart)."""
 
     tag: str
     seconds: float
@@ -126,6 +141,9 @@ class Capture:
     launches: int
     nodes: int = 0
     loops: tuple = ()
+    warm_seconds: float = 0.0
+    record_seconds: float = 0.0
+    instantiate_seconds: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,23 +217,35 @@ def _drain() -> None:
 # inputs and outputs as flat lists of tensors
 # --------------------------------------------------------------------------- #
 
-_T, _C = "tensor", "constant"
+_T, _C, _S = "tensor", "constant", "scalar"
+
+# the Python numbers `jit` traces, and the dtype of the 0-d tensor each
+# becomes (a float stays exact in float64)
+_NUMBERS = {bool: torch.bool, int: torch.int64, float: torch.float64,
+            complex: torch.complex128}
 
 
-def _flatten(x, leaves: list):
+def _flatten(x, leaves: list, trace: bool = False):
     """Append the tensors of ``x`` (tensors, None, tuples, lists and
     dataclasses of them, hashable constants) to ``leaves``; returns the
-    hashable structure that `_unflatten` rebuilds ``x`` from."""
+    hashable structure that `_unflatten` rebuilds ``x`` from.  With
+    ``trace``, a Python bool, int, float or complex or a numpy scalar
+    outside a dataclass is a leaf too, appended as it is and keyed by its
+    type (a numpy scalar by its dtype), not its value: `jit`'s traced
+    scalars.  A dataclass's fields that are not tensors stay constants."""
     if isinstance(x, torch.Tensor):
         leaves.append(x)
         return (_T, tuple(x.shape), x.dtype, x.device)
     if x is None:
         return None
+    if trace and (type(x) in _NUMBERS or isinstance(x, (np.number, np.bool_))):
+        leaves.append(x)
+        return (_S, x.dtype if isinstance(x, np.generic) else type(x))
     if dataclasses.is_dataclass(x):
         return (type(x), tuple((f.name, _flatten(getattr(x, f.name), leaves))
                                for f in dataclasses.fields(x)))
     if isinstance(x, (tuple, list)):
-        return (type(x), tuple(_flatten(v, leaves) for v in x))
+        return (type(x), tuple(_flatten(v, leaves, trace) for v in x))
     hash(x)
     return (_C, x)
 
@@ -225,7 +255,7 @@ def _unflatten(spec, leaves):
     if spec is None:
         return None
     kind = spec[0]
-    if kind == _T:
+    if kind == _T or kind == _S:
         return next(leaves)
     if kind == _C:
         return spec[1]
@@ -259,8 +289,53 @@ def _static(leaves):
 
 
 def _copy_in(static, leaves):
+    """The tensors of ``leaves`` into ``static`` (a traced number among
+    ``leaves`` is copied in by `_Call`, one copy per dtype)."""
     for s, t in zip(static, leaves):
-        s.copy_(t)
+        if isinstance(t, torch.Tensor):
+            s.copy_(t)
+
+
+def _numbers(tag, leaves, device) -> list:
+    """The traced numbers among ``leaves``, one group per dtype: (their
+    positions, a host tensor of their values, pinned for a CUDA
+    ``device``), in the order of their first positions.  Raises under
+    ``tag`` for a number no tensor holds."""
+    groups: dict = {}
+    try:
+        for i, v in enumerate(leaves):
+            if not isinstance(v, torch.Tensor):
+                dtype = (torch.from_numpy(np.asarray(v)).dtype if isinstance(v, np.generic)
+                         else _NUMBERS[type(v)])
+                pos, vals = groups.setdefault(dtype, ([], []))
+                pos.append(i)
+                vals.append(v)
+        return [(pos, torch.tensor(vals, dtype=dtype, pin_memory=device.type == "cuda"))
+                for dtype, (pos, vals) in groups.items()]
+    except (TypeError, ValueError, RuntimeError, OverflowError) as e:
+        raise _copy_failed(tag, device, e) from e
+
+
+def _copy_failed(tag, device, e) -> RuntimeError:
+    return RuntimeError(f"{tag}: copying its scalar arguments to {device} failed "
+                        f"({type(e).__name__}: {e})")
+
+
+def _on_device(tag, leaves, device, numbers) -> list:
+    """``leaves`` with each traced number a 0-d tensor on ``device``: one
+    copy from the host per dtype of ``numbers`` (`_numbers`), from pinned
+    memory on a card, so that no call makes the host wait.  (A 0-d CPU
+    tensor handed to a CUDA operator inside a capture would be baked into
+    the graph as a kernel argument.)"""
+    out = list(leaves)
+    for pos, host in numbers:
+        try:
+            values = host.to(device, non_blocking=True).unbind(0)
+        except RuntimeError as e:
+            raise _copy_failed(tag, device, e) from e
+        for i, t in zip(pos, values):
+            out[i] = t
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -312,7 +387,8 @@ def _capture_cuda(device, fn, generators=()):
     call runs nothing), the random generators ``generators`` registered with
     it (torch registers the default one itself).  Returns (replay, the
     captured call's outputs, the fused kernel launches it recorded, the
-    bytes its private pool reserved, its nodes)."""
+    bytes its private pool reserved, its nodes, the seconds its
+    instantiation took)."""
     from ..kernels import fused
 
     side = _side_stream(device)
@@ -322,7 +398,8 @@ def _capture_cuda(device, fn, generators=()):
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
-    graph = torch.cuda.CUDAGraph()
+    # the capture's end leaves the graph uninstantiated: timed apart
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     for g in generators:
         graph.register_generator_state(g)
     n0 = fused.captured_launches()
@@ -338,6 +415,10 @@ def _capture_cuda(device, fn, generators=()):
             except Exception as e:
                 first = e
                 raise
+        t0 = time.perf_counter()
+        with torch.cuda.device(device):
+            graph.instantiate()
+        instantiate = time.perf_counter() - t0
     except Exception as e:
         # ending a broken capture raises too, before torch.cuda.graph
         # restores the stream: restore it, and raise the body's own error
@@ -352,7 +433,7 @@ def _capture_cuda(device, fn, generators=()):
         weakref.finalize(graph, torch._C._cuda_releasePool, *body_pool)
     launches = fused.captured_launches() - n0
     return (graph.replay, out, launches, torch.cuda.memory_reserved(device) - reserved,
-            nodes)
+            nodes, instantiate)
 
 
 # the capture backend (the CPU tests put a stand-in here)
@@ -373,19 +454,26 @@ def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
     with inline():
         warm = _warm_up(device, warm_fn)
         _prepare(device)              # load what a WHILE node launches
+        t1 = time.perf_counter()
         _INSIDE.capturing, _INSIDE.loops = True, []
         try:
-            replay, out, launches, pool, nodes = _capture(device, fn, generators)
+            replay, out, launches, pool, nodes, inst = _capture(device, fn, generators)
         except Exception as e:
             raise RuntimeError(
-                f"{tag}: capturing the CUDA graph failed ({type(e).__name__}: {e}); "
-                "run it eagerly with loik_tpu_torch.utils.disable_graphs() to debug"
+                f"{tag}: capturing the CUDA graph failed ({type(e).__name__}: {e}); a "
+                "captured body reads nothing on the host (no .item(), bool(t), int(t) or "
+                "copy of host data to the device; for a utils.jit function, no Python "
+                "control flow on a traced scalar argument: name it in static_argnums / "
+                "static_argnames to bake it in); run it eagerly with "
+                "loik_tpu_torch.utils.disable_graphs() to debug"
             ) from e
         finally:
             _INSIDE.capturing = False
             loops, _INSIDE.loops = tuple(_INSIDE.loops), []
-    CAPTURES.append(Capture(tag, time.perf_counter() - t0, pool, static_bytes, launches,
-                            nodes + sum(lp.body_nodes for lp in loops), loops))
+    warm_s, record_s = t1 - t0, time.perf_counter() - t1 - inst
+    CAPTURES.append(Capture(tag, warm_s + record_s + inst, pool, static_bytes, launches,
+                            nodes + sum(lp.body_nodes for lp in loops), loops,
+                            warm_s, record_s, inst))
     key = id(replay)
     _GRAPHS[key] = (replay, weakref.ref(owner, lambda _, key=key, gone=_GONE: gone.append(key)))
     return warm, replay, out, launches
@@ -676,11 +764,21 @@ class _Call:
     """A captured call of ``body`` on static copies of its inputs.  The call
     that captures it is answered by the warm-up (`first`).  With a
     ``generator`` the body draws from, the warm-up draws from it and the
-    graph from a generator of its own (`rng`), registered with it."""
+    graph from a generator of its own (`rng`), registered with it.  The
+    traced numbers of a `jit` call (``numbers``, `_numbers`: their
+    positions among ``leaves``, which holds them as 0-d tensors) get one
+    static buffer per dtype, whose 0-d views are their inputs."""
 
-    def __init__(self, tag, body, spec, leaves, generator=None):
+    def __init__(self, tag, body, spec, leaves, generator=None, numbers=()):
         self.lock = threading.Lock()
+        self.tag = tag
         self.static = _static(leaves)
+        self.numbers = []
+        for pos, _ in numbers:
+            buf = torch.stack([self.static[i] for i in pos])
+            for i, t in zip(pos, buf.unbind(0)):
+                self.static[i] = t
+            self.numbers.append(buf)
         # the body gets detached aliases of the buffers, the same ones in
         # the warm-up and the capture: a `jit` function that marks an input
         # to be differentiated leaves the buffers as they are
@@ -701,11 +799,16 @@ class _Call:
         _flatten(warm, warm_leaves)
         self.first = _unflatten(self.out_spec, iter(_fresh(warm_leaves)))
 
-    def __call__(self, leaves, generator=None):
+    def __call__(self, leaves, generator=None, numbers=()):
         from ..kernels import fused
 
         with self.lock:
             _copy_in(self.static, leaves)
+            for buf, (_, host) in zip(self.numbers, numbers):
+                try:
+                    buf.copy_(host, non_blocking=True)
+                except RuntimeError as e:
+                    raise _copy_failed(self.tag, buf.device, e) from e
             if self.rng is not None:
                 # the replay draws from the graph's generator at the
                 # caller's seed and offset, and hands the advanced offset back
@@ -747,19 +850,55 @@ def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
     return g(leaves, generator) if result is _NONE else result
 
 
-def jit(fn: Callable) -> Callable:
+class ConcretizationTypeError(TypeError):
+    """A value read on the host inside the capture of a `utils.jit`
+    function: the counterpart of jax's ``ConcretizationTypeError``."""
+
+
+class _NoHostValues(TorchFunctionMode):
+    """On while a `jit` function that has traced scalars is captured: a
+    read of a device value on the host (`bool(t)`, `int(t)`, `range(t)`,
+    `.item()`, ...) raises before it happens, naming the traced scalar
+    argument read (``names``: id of its tensor -> its name) when it is one.
+    On the card such a read fails the capture anyway; here it fails with
+    its cause, and the CPU stand-in of the tests sees it too."""
+
+    READS = frozenset({"__bool__", "__int__", "__float__", "__complex__", "__index__",
+                       "item", "tolist", "numpy"})
+
+    def __init__(self, tag, names):
+        super().__init__()
+        self.tag, self.names = tag, names
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", None)
+        if (name in self.READS and args and isinstance(args[0], torch.Tensor)
+                and _graph_device(args[0].device)):
+            arg = self.names.get(id(args[0]))
+            what = (f"the traced scalar argument {arg}" if arg else
+                    "a device tensor (the traced scalar arguments of this call: "
+                    + ", ".join(sorted(set(self.names.values()))) + ")")
+            raise ConcretizationTypeError(
+                f"{self.tag}: {name} of {what} inside the capture; a traced number has "
+                "no value on the host, so Python control flow on it (if, range, a shape) "
+                "cannot be captured: name it in static_argnums / static_argnames to bake "
+                "its value in")
+        return func(*args, **(kwargs or {}))
+
+
+def jit(fn: Callable, static_argnums=(), static_argnames=()) -> Callable:
     """``fn`` as a captured CUDA graph: the counterpart of `jax.jit` for a
-    function of tensors.  The training step of the differentiable solve is
-    the case it is for: a function that marks what it differentiates
-    (``x.requires_grad_()``), calls `solve_unrolled` and
+    function of tensors and numbers.  The training step of the
+    differentiable solve is the case it is for: a function that marks what
+    it differentiates (``x.requires_grad_()``), calls `solve_unrolled` and
     `torch.autograd.grad` (second order too, with ``create_graph=True``)
     and returns the value and its derivatives, as
     ``jax.jit(lambda x: (loss(x), jax.grad(loss)(x)))`` does::
 
         @loik_tpu_torch.utils.jit
-        def step(bz):
+        def step(bz, weight):
             bz.requires_grad_()
-            value = loss(bz)
+            value = weight * loss(bz)
             g, = torch.autograd.grad(value, bz, create_graph=True)
             h, = torch.autograd.grad(g, bz)
             return value, g, h
@@ -768,50 +907,123 @@ def jit(fn: Callable) -> Callable:
     call's) and then captures ONE call of it as a CUDA graph, forward and
     backward alike (autograd's worker thread runs the backward on the
     capturing stream); later calls copy the tensors into the graph's static
-    input buffers and replay it.  The key: ``fn`` by identity (its graphs
-    go when it does), the structure of the arguments (tensors, None,
-    tuples, lists and dataclasses of them), each tensor's device, dtype and
-    shape, and the value of every other argument (hashable: a static,
-    baked into the graph).  ``fn`` gets detached leaves that share the
-    buffers' memory; the results are detached fresh tensors, as `run`'s.
-    Tensors that ``fn`` closes over are read where they lie at every
-    replay: they live as long as ``fn``, and a new value must be written
-    into them in place, not bound to the name.  ``fn`` reads nothing back
-    to the host (no ``.item()``, ``bool(t)`` or copy of host data to the
-    card), as every captured body.
+    input buffers and replay it.  Positional and keyword arguments alike
+    (keywords in the order of their names).  The key: ``fn`` by identity
+    (its graphs go when it does), the structure of the arguments (tensors,
+    None, numbers, tuples, lists and dataclasses of them), each tensor's
+    device, dtype and shape, each number's type, and the value of every
+    other argument (hashable: a static, baked into the graph).
+
+    Numbers are traced, as `jax.jit` traces them: a Python bool, int,
+    float or complex, or a numpy scalar, among the arguments (in a tuple or
+    list among them too, but not a dataclass's field, which stays static)
+    reaches ``fn`` as a 0-d tensor on the arguments' device: bool, int64,
+    float64 (the value stays exact) and complex128, a numpy scalar in its
+    own dtype.  So a new value is no new capture: one pinned host tensor
+    per dtype is copied into the graph, without a host synchronisation.
+    Those named by ``static_argnums`` (positions) or ``static_argnames``
+    (names; as in `jax.jit`, either also marks the other through ``fn``'s
+    signature) are keyed by value and reach ``fn`` as they are.  A
+    function with no tensor argument runs eagerly, its numbers 0-d CPU
+    tensors.
+
+    A traced number has no value on the host inside the capture: Python
+    control flow on it (``if flag:``, ``range(n)``, a shape) raises
+    `ConcretizationTypeError` (under the capture's `RuntimeError`), naming
+    the argument and ``static_argnums`` / ``static_argnames``; it is never
+    baked in.  Its type promotion is torch's: a 0-d tensor does not
+    promote a tensor with dimensions of its category, as jax's weak types
+    do not (a float32 tensor times a traced float is float32, an int32
+    tensor times a traced int is int32), but it joins 0-d tensors (a 0-d
+    float32 tensor times a traced float is float64; jax: float32) and
+    promotes across categories to its own dtype (an int32 tensor times a
+    traced float is float64; jax: float32 without x64).  CUDA divides a
+    tensor by a Python float as a multiply by its reciprocal but by a 0-d
+    tensor exactly, so ``fn`` called with the raw number may differ in the
+    last bits; every path of this function hands ``fn`` the same 0-d
+    tensors.
+
+    ``fn`` gets detached leaves that share the buffers' memory; the
+    results are detached fresh tensors, as `run`'s.  Tensors that ``fn``
+    closes over are read where they lie at every replay: they live as long
+    as ``fn``, and a new value must be written into them in place, not
+    bound to the name.  ``fn`` reads nothing back to the host (no
+    ``.item()``, ``bool(t)`` or copy of host data to the card), as every
+    captured body.
 
     Eagerly on CPU tensors, under `disable_graphs()` and while `debug_nans`
     is on: ``fn`` on detached aliases of the arguments, its results
     detached.  When an argument already requires a gradient (under grad
-    mode), ``fn(*args)`` as it is, eagerly: a graph would cut that
-    argument's autograd record, and the results could not be
-    differentiated back to it.  A failed capture raises under ``fn``'s
-    name; it never runs eagerly instead.  Each capture is logged in
-    `CAPTURES`; `clear_graphs()` frees the graphs."""
+    mode), ``fn`` on the arguments as they are, eagerly: a graph would cut
+    that argument's autograd record, and the results could not be
+    differentiated back to it.  A failed capture, or a failed copy of the
+    numbers, raises under ``fn``'s name; it never runs eagerly instead.
+    Each capture is logged in `CAPTURES`; `clear_graphs()` frees the
+    graphs."""
     tag = getattr(fn, "__qualname__", None) or repr(fn)
+    nums = {static_argnums} if isinstance(static_argnums, int) else set(static_argnums)
+    names = {static_argnames} if isinstance(static_argnames, str) else set(static_argnames)
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        params = ()
+    positional = [p.name for p in params
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    nums |= {i for i, p in enumerate(positional) if p in names}
+    names |= {positional[i] for i in nums if -len(positional) <= i < len(positional)}
 
-    def body(*args):
+    def split(args, kwargs, leaves, labels):
+        """The key of a call; its tensors and numbers appended to
+        ``leaves``, each number's argument name put in ``labels``."""
+        static = {i % len(args) for i in nums if -len(args) <= i < len(args)}
+        pos, kw = [], []
+        for i, a in enumerate(args):
+            n = len(leaves)
+            pos.append(_flatten(a, leaves, trace=i not in static))
+            name = f"'{positional[i]}' (argument {i})" if i < len(positional) else f"argument {i}"
+            labels.update((j, name) for j in range(n, len(leaves))
+                          if not isinstance(leaves[j], torch.Tensor))
+        for key in sorted(kwargs):
+            n = len(leaves)
+            kw.append((tuple, ((_C, key), _flatten(kwargs[key], leaves, trace=key not in names))))
+            labels.update((j, f"'{key}'") for j in range(n, len(leaves))
+                          if not isinstance(leaves[j], torch.Tensor))
+        return (tuple, ((tuple, tuple(pos)), (tuple, tuple(kw))))
+
+    def body(labels, args, kwargs):
         leaves: list = []
-        _flatten(args, leaves)
+        _flatten((args, kwargs), leaves)
         for t in leaves:            # the capture finds them as the warm-up did
             t.requires_grad_(False)
-        return fn(*args)
+        if not (labels and getattr(_INSIDE, "capturing", False)):
+            return fn(*args, **dict(kwargs))
+        with _NoHostValues(tag, {id(leaves[i]): name for i, name in labels.items()}):
+            return fn(*args, **dict(kwargs))
 
     @functools.wraps(fn)
-    def jitted(*args):
+    def jitted(*args, **kwargs):
         leaves: list = []
-        spec = _flatten(args, leaves)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-            return fn(*args)
-        if not _graphable(leaves):
-            return _map(torch.Tensor.detach, fn(*_map(torch.Tensor.detach, args)))
+        labels: dict = {}
+        spec = split(args, kwargs, leaves, labels)
+        tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+        device = tensors[0].device if tensors else torch.device("cpu")
+        numbers = _numbers(tag, leaves, device)
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+        if grad or not _graphable(tensors):
+            eager = _on_device(tag, leaves, device, numbers)
+            if not grad:
+                eager = [t.detach() for t in eager]
+            pos, kw = _unflatten(spec, iter(eager))
+            out = fn(*pos, **dict(kw))
+            return out if grad else _map(torch.Tensor.detach, out)
 
         def build():
-            g = _Call(tag, body, spec, leaves)
+            g = _Call(tag, functools.partial(body, labels), spec,
+                      _on_device(tag, leaves, device, numbers), numbers=numbers)
             return g, g.first
 
         g, result = _graph(tag, fn, spec, build)
-        return g(leaves) if result is _NONE else result
+        return g(leaves, numbers=numbers) if result is _NONE else result
 
     return jitted
 

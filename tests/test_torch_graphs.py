@@ -123,7 +123,7 @@ class FakeCapture:
             for a, b in zip(leaves, new):
                 a.copy_(b)
 
-        return replay, out, launches, 0, 0
+        return replay, out, launches, 0, 0, 0.0
 
 
 def standin_while(device, pred, step, trips):

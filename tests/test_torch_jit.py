@@ -89,21 +89,22 @@ def toy(x, y, scale):
 
 def test_captures_once_per_key(fake_graphs):
     """One capture per key: the same shapes and statics replay; another
-    dtype, shape or static captures anew.  The key holds the function by
-    identity (a second `jit` of it shares its graphs), and the capture is
-    logged under its name.  Every result equals the eager call's."""
+    dtype or shape captures anew, another float does not (it is traced,
+    as `jax.jit` traces it).  The key holds the function by identity (a
+    second `jit` of it shares its graphs), and the capture is logged under
+    its name.  Every result equals the eager call's."""
     f = jit(toy)
     x, y = torch.randn(3, 4, dtype=torch.float64), torch.randn(3, 4, dtype=torch.float64)
     n = len(graphs.CAPTURES)
     calls = [((x, y, 2.0), 1), ((x + 1, y, 2.0), 1), ((x.float(), y.float(), 2.0), 2),
-             ((x[:2], y[:2], 2.0), 3), ((x, y, 3.0), 4), ((x - 1, y, 3.0), 4)]
+             ((x[:2], y[:2], 2.0), 3), ((x, y, 3.0), 3), ((x - 1, y, 3.0), 3)]
     for args, captures in calls:
         got = f(*args)
         assert len(graphs.CAPTURES) == n + captures
         assert_bits(got, toy(*args))
     assert graphs.CAPTURES[-1].tag == "toy"
     jit(toy)(x, y, 2.0)
-    assert len(graphs.CAPTURES) == n + 4
+    assert len(graphs.CAPTURES) == n + 3
 
 
 def test_replays_return_fresh_unaliased_results(fake_graphs):
@@ -241,3 +242,214 @@ def test_solve_unrolled_saves_no_generator_state(monkeypatch):
     monkeypatch.setattr(torch, "set_rng_state", refused)
     got = step(bz.clone())
     assert_bits(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# traced numbers, as `jax.jit` traces them
+# --------------------------------------------------------------------------- #
+
+
+def scaled(x, s):
+    """Divides by the scalar too: on the card torch divides by a Python
+    float as a multiply by its reciprocal, by a 0-d tensor exactly."""
+    return x / s + s * x, (x * s).sum()
+
+
+def test_hundred_floats_make_one_capture(fake_graphs):
+    """100 distinct Python floats: one capture; each result equals the
+    eager call (`disable_graphs()`, which hands the function the same 0-d
+    float64 tensor) and the function called with that tensor bit for bit,
+    and the function called with the raw float within 2 ulp of float64
+    (here on the CPU they agree exactly; on the card a division by the raw
+    float is a multiply by its reciprocal)."""
+    f = jit(scaled)
+    x = torch.as_tensor(np.random.default_rng(3).normal(size=(4, 5)))
+    n = len(graphs.CAPTURES)
+    for s in np.random.default_rng(4).uniform(0.1, 10.0, 100).tolist():
+        got = f(x, s)
+        with graphs.disable_graphs():
+            assert_bits(got, f(x, s))
+        assert_bits(got, scaled(x, torch.tensor(s, dtype=torch.float64)))
+        for a, b in zip(got, scaled(x, s)):
+            torch.testing.assert_close(a, b, rtol=2 * 2.0 ** -52, atol=0.0)
+    assert len(graphs.CAPTURES) == n + 1
+    assert fake_graphs.reads[-1] == []
+
+
+def as_seen(x, v):
+    """``v`` as the function sees it (a 0-d tensor when traced), and x * v."""
+    return v.clone(), x * v
+
+
+@pytest.mark.parametrize("values,dtype", [
+    ((2, 3), torch.int64), ((True, False), torch.bool), ((0.5, 1e-300), torch.float64),
+    ((np.float32(0.5), np.float32(3.0)), torch.float32),
+    ((np.int16(-2), np.int16(7)), torch.int16), ((1 + 2j, -1j), torch.complex128)])
+def test_numbers_are_traced_by_type(values, dtype, fake_graphs):
+    """Python ints, bools, floats and complex numbers and numpy scalars are
+    traced: two values are one capture and reach the function as 0-d
+    tensors of their dtype (a numpy scalar keeps its own); another Python
+    type at the same place is another key.  Results equal the eager call's."""
+    f = jit(as_seen)
+    x = torch.arange(1.0, 4.0, dtype=torch.float64)
+    n = len(graphs.CAPTURES)
+    for v in values:
+        got = f(x, v)
+        assert got[0].dtype == dtype and got[0].shape == ()
+        assert got[0].item() == v
+        with graphs.disable_graphs():
+            assert_bits(got, f(x, v))
+    assert len(graphs.CAPTURES) == n + 1
+    other = 1.5 if dtype != torch.float64 else 1
+    f(x, other)
+    assert len(graphs.CAPTURES) == n + 2
+
+
+def test_numbers_inside_tuples_and_lists_are_traced(fake_graphs):
+    """A number in a tuple or list among the arguments is traced too."""
+    f = jit(lambda x, ab: x * ab[0] + ab[1][0])
+    x = torch.ones(3, dtype=torch.float64)
+    n = len(graphs.CAPTURES)
+    for a, b in ((2.0, 1.0), (3.0, -1.0), (0.25, 7.0)):
+        assert torch.equal(f(x, (a, [b])), x * a + b)
+    assert len(graphs.CAPTURES) == n + 1
+
+
+def scale_by(x, scale):
+    seen.append(type(scale))
+    return x * scale
+
+
+seen: list = []
+
+
+@pytest.mark.parametrize("how", ["argnums", "negative argnums", "argnames",
+                                 "argnames given by position", "argnums given by name"])
+def test_static_arguments_are_baked_in(how, fake_graphs):
+    """``static_argnums`` / ``static_argnames`` bake a value in, as
+    `jax.jit`'s do: two values are two captures, and the function gets the
+    Python number itself.  Either marks the other through the signature."""
+    opts = {"argnums": dict(static_argnums=1), "negative argnums": dict(static_argnums=(-1,)),
+            "argnames": dict(static_argnames="scale"),
+            "argnames given by position": dict(static_argnames=("scale",)),
+            "argnums given by name": dict(static_argnums=(1,))}[how]
+    f = jit(scale_by, **opts)
+    x = torch.ones(3)
+    n = len(graphs.CAPTURES)
+    seen.clear()
+    for s in (2.0, 3.0, 2.0):
+        if how in ("argnames", "argnums given by name"):
+            got = f(x, scale=s)
+        else:
+            got = f(x, s)
+        assert torch.equal(got, x * s)
+    assert len(graphs.CAPTURES) == n + 2
+    assert set(seen) == {float}
+
+
+def test_keyword_arguments_are_traced(fake_graphs):
+    """Keyword arguments are traced like positional ones and keyed by
+    name, in whatever order they are given."""
+    def f(x, *, scale, shift=0.0):
+        return x * scale + shift
+
+    g = jit(f)
+    x = torch.arange(3.0, dtype=torch.float64)
+    n = len(graphs.CAPTURES)
+    got = [g(x, scale=2.0, shift=1.0), g(x, shift=-1.0, scale=0.5), g(x, scale=4.0, shift=0.0)]
+    assert len(graphs.CAPTURES) == n + 1
+    for r, (a, b) in zip(got, ((2.0, 1.0), (0.5, -1.0), (4.0, 0.0))):
+        with graphs.disable_graphs():
+            assert_bits(r, g(x, scale=a, shift=b))
+        assert torch.equal(r, x * a + b)
+    g(x, scale=2.0)
+    assert len(graphs.CAPTURES) == n + 2
+
+
+def branch(x, flag):
+    return x + 1 if flag else x - 1
+
+
+def repeat(x, n):
+    for _ in range(n):
+        x = x * 2
+    return x
+
+
+@pytest.mark.parametrize("fn,value,name", [(branch, True, "'flag'"), (repeat, 3, "'n'")])
+def test_control_flow_on_a_traced_scalar_raises(fn, value, name, fake_graphs):
+    """``if flag:`` on a traced bool and ``range(n)`` on a traced int raise
+    in the capture, naming the argument and ``static_argnums`` /
+    ``static_argnames`` (jax's ConcretizationTypeError); nothing is cached
+    and the value is never baked in.  Marked static, the same calls
+    capture once per value."""
+    f = jit(fn)
+    x = torch.ones(2)
+    cached = graphs.cached_graphs()
+    with pytest.raises(RuntimeError, match=f"{name} .*static_argnums / static_argnames") as e:
+        f(x, value)
+    assert isinstance(e.value.__cause__, graphs.ConcretizationTypeError)
+    assert graphs.cached_graphs() == cached
+    g = jit(fn, static_argnums=1)
+    assert torch.equal(g(x, value), fn(x, value))
+    assert graphs.cached_graphs() == cached + 1
+
+
+def test_a_dataclass_field_that_is_no_tensor_stays_static(fake_graphs):
+    """A dataclass's non-tensor field stays static, as the aux data of a
+    pytree does in jax: two values are two captures."""
+    f = jit(lambda prob: (prob.b * len(prob.constraint_links)).sum())
+    tree, params, q, problem, mask = task(B=2)
+    n = len(graphs.CAPTURES)
+    other = problem.replace(constraint_links=(0, tree.njoints - 1))
+    for p in (problem, problem, other):
+        assert torch.equal(f(p), (p.b * len(p.constraint_links)).sum())
+    assert len(graphs.CAPTURES) == n + 2
+
+
+@pytest.mark.parametrize("x,v,dtype", [
+    (torch.ones(3), 2.5, torch.float32),                        # as jax's weak type
+    (torch.ones(3, dtype=torch.int32), 2, torch.int32),         # as jax's weak type
+    (torch.ones(3, dtype=torch.float16), 2.5, torch.float16),   # as jax's weak type
+    (torch.tensor(1.0), 2.5, torch.float64),                    # jax: float32
+    (torch.ones(3, dtype=torch.int32), 2.5, torch.float64),     # jax: float32 without x64
+])
+def test_promotion_of_traced_numbers(x, v, dtype, fake_graphs):
+    """The dtypes the docstring states: a traced number is a 0-d tensor, so
+    it promotes as torch's 0-d tensors do."""
+    got = jit(lambda a, b: a * b)(x, v)
+    assert got.dtype == dtype
+    with graphs.disable_graphs():
+        assert jit(lambda a, b: a * b)(x, v).dtype == dtype
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_a_failed_scalar_copy_raises_under_the_function_name(graphed, request):
+    """A number no tensor holds (an int beyond int64) raises under the
+    function's name, graphed or eager, and nothing is captured."""
+    if graphed:
+        request.getfixturevalue("fake_graphs")
+    f = jit(toy)
+    x = torch.ones(3)
+    n = len(graphs.CAPTURES)
+    with pytest.raises(RuntimeError, match="toy: copying its scalar arguments to cpu failed"):
+        f(x, x, 2 ** 70)
+    assert len(graphs.CAPTURES) == n
+
+
+def test_a_function_of_numbers_only_runs_eagerly(fake_graphs):
+    """With no tensor argument the numbers are 0-d CPU tensors and the
+    function runs eagerly: nothing is captured."""
+    n = len(graphs.CAPTURES)
+    got = jit(lambda a, b: a * b)(3, 0.5)
+    assert got.dtype == torch.float64 and float(got) == 1.5
+    assert len(graphs.CAPTURES) == n
+
+
+def test_capture_records_its_parts(fake_graphs):
+    """`Capture` splits a first call into warm-up, record and instantiate
+    (the stand-in instantiates nothing: 0); their sum is ``seconds``."""
+    jit(toy)(torch.ones(3), torch.ones(3), 2.0)
+    c = graphs.CAPTURES[-1]
+    assert c.warm_seconds > 0 and c.record_seconds > 0 and c.instantiate_seconds == 0.0
+    assert c.warm_seconds + c.record_seconds + c.instantiate_seconds == c.seconds

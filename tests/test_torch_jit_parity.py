@@ -6,7 +6,10 @@ in float64 on the CPU: the same task (ur5, one task row A = e_z e_z', box
 same numpy-seeded configurations (B = 4) and 30 body calls, at two
 points.  The port's step runs eagerly (CPU tensors) and through the
 stand-in capture of tests/test_torch_graphs.py (the graph path: static
-buffers, a replay, fresh outputs).  loik_tpu compiles once.
+buffers, a replay, fresh outputs).  loik_tpu compiles once: its step also
+takes a Python float weight of the loss (``weight * loss``), which
+`jax.jit` traces, and so does the port's `utils.jit`: two weights are one
+compile and one capture, at the same tolerances.
 
 Tolerances: the value rtol 1e-10; the gradient rtol 1e-8, as
 tests/test_torch_diff.py's; the Hessian rtol 1e-10.  The gaps measured
@@ -34,6 +37,7 @@ from tests.test_torch_model import q_batch
 N_ITERS = 30
 B_TRUE = 0.17
 POINTS = (0.5, 0.2)
+WEIGHTS = (0.5, 3.0)
 
 
 def task():
@@ -62,9 +66,16 @@ def runs():
     def loss(bz):
         return jnp.mean((jsolve(bz).nu - nu_demo) ** 2)
 
-    step_fn = jax.jit(lambda bz: (loss(bz), jax.grad(loss)(bz), jax.grad(jax.grad(loss))(bz)))
-    want = [tuple(float(x) for x in step_fn(jnp.asarray(bz))) for bz in POINTS]
-    return dict(tree=tt, problem=tp, q=torch.as_tensor(q), want=want)
+    def step(bz, weight):
+        def weighted(b):
+            return weight * loss(b)
+        return weighted(bz), jax.grad(weighted)(bz), jax.grad(jax.grad(weighted))(bz)
+
+    step_fn = jax.jit(step)
+    want = [tuple(float(x) for x in step_fn(jnp.asarray(bz), 1.0)) for bz in POINTS]
+    weighted = [tuple(float(x) for x in step_fn(jnp.asarray(POINTS[0]), w)) for w in WEIGHTS]
+    return dict(tree=tt, problem=tp, q=torch.as_tensor(q), want=want, weighted=weighted,
+                compiles=step_fn._cache_size())
 
 
 def port_step(tree, problem, q):
@@ -81,9 +92,9 @@ def port_step(tree, problem, q):
     nu_demo = solve(torch.tensor(B_TRUE, dtype=torch.float64)).nu.detach()
 
     @lt.utils.jit
-    def step_fn(bz):
+    def step_fn(bz, weight=1.0):
         bz.requires_grad_()
-        val = ((solve(bz).nu - nu_demo) ** 2).mean()
+        val = weight * ((solve(bz).nu - nu_demo) ** 2).mean()
         g, = torch.autograd.grad(val, bz, create_graph=True)
         h, = torch.autograd.grad(g, bz)
         return val, g, h
@@ -105,3 +116,21 @@ def test_newton_step_matches_jax_jit(runs, path, request):
         np.testing.assert_allclose(g, jg, rtol=1e-8)
         np.testing.assert_allclose(h, jh, rtol=1e-10)
     assert len(graphs.CAPTURES) == n + (path == "graphed")
+
+
+def test_weighted_step_traces_the_weight_as_jax_jit_does(runs, fake_graphs):
+    """The step with a Python float weight: `jax.jit` compiled it once for
+    every weight, and the port's `utils.jit` captures it once; each weight's
+    value, gradient and Hessian agree with loik_tpu's."""
+    from loik_tpu_torch.utils import graphs
+
+    assert runs["compiles"] == 1
+    n = len(graphs.CAPTURES)
+    step = port_step(runs["tree"], runs["problem"], runs["q"])
+    bz = torch.tensor(POINTS[0], dtype=torch.float64)
+    for w, (jval, jg, jh) in zip(WEIGHTS, runs["weighted"]):
+        val, g, h = (float(t) for t in step(bz, w))
+        np.testing.assert_allclose(val, jval, rtol=1e-10)
+        np.testing.assert_allclose(g, jg, rtol=1e-8)
+        np.testing.assert_allclose(h, jh, rtol=1e-10)
+    assert len(graphs.CAPTURES) == n + 1

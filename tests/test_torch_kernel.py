@@ -676,3 +676,45 @@ def test_jit_backward_runs_inside_the_capture():
     gc.collect()
     graphs.cached_graphs()                    # drains the dropped graphs
     assert graphs.cached_graphs() == n
+
+
+@pytest.mark.cuda
+def test_jit_traces_python_numbers_on_card():
+    """`utils.jit` on the card traces Python floats as `jax.jit` does: 100
+    distinct floats are one capture, every replay equals the eager call
+    (`disable_graphs()`, the same 0-d float64 tensor) bit for bit, and the
+    replays with new floats never make the host wait (torch's sync debug
+    mode set to raise).  ``if flag:`` on a traced bool raises, naming
+    ``static_argnums``; marked static, it captures once per value."""
+    from loik_tpu_torch.utils import graphs
+
+    _need_card()
+
+    def f(x, s):
+        return x / s + s * x, (x * s).sum()
+
+    step = lt.utils.jit(f)
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=(1024,)), device="cuda")
+    vals = np.random.default_rng(6).uniform(0.1, 10.0, 100).tolist()
+    n = len(graphs.CAPTURES)
+    got = [step(x, vals[0])]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got += [step(x, s) for s in vals[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(graphs.CAPTURES) == n + 1
+    with graphs.disable_graphs():
+        want = [step(x, s) for s in vals]
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+    def branch(x, flag):
+        return x + 1 if flag else x - 1
+
+    with pytest.raises(RuntimeError, match="'flag'.*static_argnums"):
+        lt.utils.jit(branch)(x, True)
+    g = lt.utils.jit(branch, static_argnames="flag")
+    assert torch.equal(g(x, True), x + 1) and torch.equal(g(x, False), x - 1)
+    assert len(graphs.CAPTURES) == n + 3
