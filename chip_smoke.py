@@ -11,7 +11,9 @@ and surface paths (phase 17), all launched eagerly under
 graph's replay never calls); then phase 18, the same entry points as
 captured CUDA graphs, the default on the card, phase 19, the entry
 points whose graphs hold the solver's masked while loop as a WHILE node,
-and phase 20, the differentiable solve's training step as one graph.
+phase 20, the differentiable solve's training step as one graph, and phase
+21, the graphs keyed by the tree's topology (calibrated copies of a robot
+replay its graphs).
 Three are the
 tight-tolerance solve
 `DiffIkSolver(..., fused="require").solve_refined(q, method="delta")` at
@@ -245,7 +247,19 @@ Phases (any failure raises, so the script exits nonzero):
      step once more at w = 0.5: no new capture, value and gradients 0.5 x
      those at w = 1.0 bit for bit; then
      examples/torch/06_differentiable_ik.py run in this process on the
-     card: six Newton steps of one `utils.jit` function, one capture.
+     card: six Newton steps of one `utils.jit` function, one capture;
+ 21. graphs keyed by the tree's topology, its geometry an input (as
+     `jax.jit` keys loik_tpu's pytree): panda_arm and two calibrated copies
+     (placements moved by at most 1 mm, axes turned by at most 0.5 deg,
+     numpy-seeded) through the flagship's delta-duals solve at B = 16384,
+     the plain `solve` (WHILE node), `track_scan` B = 256 T = 10 and a
+     `utils.jit` step of `solve_delta_duals` on float64 trees at B = 64:
+     one capture per call for the three trees, each result equal to
+     `disable_graphs()` on its own tree bit for bit and the copies' unlike
+     panda_arm's, `memory_reserved` and first-call seconds per tree, beside
+     the parent's captures for the sequence; the flagship's call with the
+     tree its graph holds and with another tree (2 launches, 0 host
+     synchronisations), timed in turns.
 
 The line before the last reports the kernel on each path as JSON; the last
 line is the run's verdict as JSON.
@@ -308,6 +322,12 @@ WHILE = dict(mixed_reps=4, tracking_B=256, tracking_T=10, tracking_T_long=100, t
 # segments over the next three
 UNROLLED = dict(B=16384, num_iters=60, B_second=1024, f32_rel_bound=2e-2, guard_B=65536,
                 guard_warmup=3)
+# graphs keyed by topology (phase 21): calibrated copies of the flagship's
+# panda_arm (placements moved by at most dp metres, axes turned by at most
+# deg degrees, numpy seeds seed, seed + 1, ...), the short tracking stream,
+# the jit step's batch, and the replays timed
+TOPOLOGY = dict(copies=2, dp=1e-3, deg=0.5, seed=12, track_B=256, track_T=10, jit_B=64,
+                reps=5)
 # the scale-out and surface paths (phase 17): the flagship's task at full
 # batch, split over meshes of 1 and `shards` shards (repetitions of the
 # card), the multistart batch over `ms_shards`, the oracle on its fixtures
@@ -2784,6 +2804,164 @@ def frame_report(mods):
             f"({per[torch.float64]}), x {fused_mod.LANES} lanes")
 
 
+def calibrated_copy(torch, tree, seed, dp=TOPOLOGY["dp"], deg=TOPOLOGY["deg"]):
+    """A tree of ``tree``'s topology as a calibration of one unit makes it:
+    each placement moved by at most ``dp`` metres and each axis turned by at
+    most ``deg`` degrees about a random direction, renormalised (numpy,
+    ``seed``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N = tree.njoints
+    move = rng.normal(size=(N, 3))
+    move *= dp * rng.uniform(0.0, 1.0, (N, 1)) / np.linalg.norm(move, axis=-1, keepdims=True)
+    k = rng.normal(size=(N, 3))
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    ang = np.deg2rad(deg) * rng.uniform(0.0, 1.0, (N, 1))
+    a = tree.axis.double().cpu().numpy()
+    turned = (a * np.cos(ang) + np.cross(k, a) * np.sin(ang)
+              + k * (k * a).sum(-1, keepdims=True) * (1.0 - np.cos(ang)))
+    turned /= np.linalg.norm(turned, axis=-1, keepdims=True)
+    kw = dict(dtype=tree.dtype, device=tree.device)
+    return dataclasses.replace(tree, placement_p=tree.placement_p + torch.as_tensor(move, **kw),
+                               axis=torch.as_tensor(turned, **kw))
+
+
+def topology_path(mods, phase):
+    """Phase 21: the graphs are keyed by the tree's topology, its geometry an
+    input, as `jax.jit` keys loik_tpu's pytree.  panda_arm, then
+    `TOPOLOGY["copies"]` calibrated copies of it, through the flagship's
+    delta-duals solve at B = 16384, the plain `solve` (a WHILE node), a
+    short `track_scan` and a small `utils.jit` step that calls
+    `solve_delta_duals` on a float64 tree: per call its captures,
+    `memory_reserved` before and after, its first-call seconds and its bits
+    against `disable_graphs()` on the same tree, beside what the parent's
+    key (the tree object) made for the sequence.  Then the flagship's
+    graphed call with the tree its graph holds and with another tree each
+    time (CUDA events, median of `TOPOLOGY["reps"]`), its launches and host
+    synchronisations.  Returns the numbers."""
+    from loik_tpu_torch.utils import graphs
+
+    torch, lt, fused_mod, _, _, _ = mods
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    graphs.clear_graphs()
+    torch.cuda.empty_cache()
+    B, K = PATHS["flagship"]["B"], PATHS["flagship"]["K"]
+    base, links, problem, params, q = config(lt, torch, "flagship", torch.float32, dev, B, K)
+    n_copies = TOPOLOGY["copies"]
+    trees = [base] + [calibrated_copy(torch, base, TOPOLOGY["seed"] + i)
+                      for i in range(n_copies)]
+    names = ["panda_arm"] + [f"copy {i + 1}" for i in range(n_copies)]
+    moved = max(float((t.placement_p - base.placement_p).norm(dim=-1).max()) for t in trees)
+    turned = max(float(torch.rad2deg(torch.arccos((t.axis * base.axis).sum(-1).clamp(max=1.0)))
+                       .max()) for t in trees)
+    log(f"[{phase}] graphs keyed by topology: panda_arm and {n_copies} calibrated copies "
+        f"(placements moved by up to {moved * 1e3:.3f} mm, axes turned by up to "
+        f"{turned:.3f} deg; numpy seeds {TOPOLOGY['seed']}..)")
+
+    solvers = [lt.DiffIkSolver(t, params, links, problem=problem, fused="require")
+               for t in trees]
+    Bt, T = TOPOLOGY["track_B"], TOPOLOGY["track_T"]
+    q_t = q[:Bt].contiguous()
+    t_params = params.replace(tol_abs=1e-4, tol_rel=1e-4, warm_start=True)
+    b_seq = torch.zeros((T, 6), dtype=torch.float32, device=dev)
+    b_seq[:, 2] = 0.2 * torch.cos(2 * torch.pi * torch.arange(T, device=dev) / T)
+    Bj = TOPOLOGY["jit_B"]
+    _, _, problem64, _, q64 = config(lt, torch, "flagship", torch.float64, dev, Bj, K)
+    trees64 = [t.to(dtype=torch.float64) for t in trees]
+    step = lt.utils.jit(
+        lambda tree, qq, pr: lt.solve_delta_duals(tree, params, qq, pr, fused="require").nu)
+
+    calls = [
+        ("flagship delta-duals", f"B={B}", 2, 1, lambda i: solvers[i].solve_refined(q)),
+        ("solve (WHILE node)", f"B={B}", 0, 1, lambda i: lt.solve(trees[i], params, q, problem)),
+        ("track_scan", f"B={Bt} T={T}", T, 1,
+         lambda i: lt.DiffIkSolver(trees[i], t_params, links, problem=problem,
+                                   fused="require").track_scan(q_t, b_seq)),
+        # the parent keyed a jit function's tree by its topology already (a
+        # dataclass argument): one capture, the copies answered from the
+        # first tree's float32 cast and S operand
+        ("utils.jit step of solve_delta_duals on a float64 tree", f"B={Bj}", 2, 0,
+         lambda i: step(trees64[i], q64, problem64)),
+    ]
+    out = {}
+    for what, size, launches, parent_per_tree, fn in calls:
+        log(f"    {what} {size}:")
+        rows, results = [], []
+        for i, name in enumerate(names):
+            torch.cuda.synchronize()
+            n0, r0 = len(graphs.CAPTURES), torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            res = fn(i)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            r1, caps = torch.cuda.memory_reserved(), len(graphs.CAPTURES) - n0
+            with graphs.disable_graphs():
+                want = fn(i)
+            torch.cuda.synchronize()
+            bad = bits_equal(torch, res, want)
+            pool = graphs.CAPTURES[-1].pool_bytes if caps else 0
+            pooled = f" (pool {pool / 2**20:.1f} MiB)" if caps else ""
+            log(f"      {name}: {caps} capture(s){pooled}, "
+                f"memory_reserved {r0 / 2**20:.1f} -> {r1 / 2**20:.1f} MiB "
+                f"({(r1 - r0) / 2**20:+.1f}), first call {secs:.3f} s, against "
+                f"disable_graphs() on this tree: {len(bad)} of {len(leaves(res))} tensors differ")
+            if bad:
+                raise AssertionError(f"{what} on {name}: graphed and eager-launched results "
+                                     f"differ in tensors {bad[:10]}")
+            rows.append(dict(tree=name, captures=caps, pool_bytes=pool, reserved_before=r0,
+                             reserved_after=r1, first_call_s=secs))
+            results.append(res)
+        caps = [r["captures"] for r in rows]
+        if caps != [1] + [0] * n_copies:
+            raise AssertionError(f"{what}: captures {caps}, expected one for the topology")
+        same = [i for i in range(1, len(trees)) if not bits_equal(torch, results[i], results[0])]
+        if same:
+            raise AssertionError(f"{what}: the copies {same} answered with panda_arm's bits")
+        parent = 1 + parent_per_tree * n_copies
+        log(f"      {sum(caps)} capture(s) and {sum(caps)} pool(s) for the {len(trees)} trees; "
+            f"the parent's key (the tree object) made {parent} and {parent} for this sequence"
+            + ("" if parent_per_tree else " (keyed by topology there too, but the copies "
+               "answered from panda_arm's cast and S operand)"))
+        out[what] = dict(rows=rows, parent_captures=parent)
+
+    # the flagship's repeated calls: with the tree the graph holds (no copy)
+    # and with another tree each time (its leaves copied in, its float32
+    # cast and S operand recomputed)
+    flag = calls[0][4]
+    flag(0)
+    _, n = repeated(torch, fused_mod, "flagship delta-duals, the same tree", lambda: flag(0), 2)
+    flag(0)
+    torch.cuda.synchronize()
+    fused_mod.LAUNCHES = 0
+    _, syncs = count_syncs(torch, lambda: flag(1))
+    torch.cuda.synchronize()
+    log(f"    flagship delta-duals, another tree: {fused_mod.LAUNCHES} launches, host "
+        f"synchronisations {len(syncs)}")
+    if fused_mod.LAUNCHES != 2 or syncs:
+        raise AssertionError(f"flagship on another tree: {fused_mod.LAUNCHES} launches, "
+                             f"syncs {syncs[:5]}")
+    same_ms, switch_ms = [], []
+    for r in range(TOPOLOGY["reps"]):
+        flag(0)
+        same_ms.append(event_ms(torch, lambda: flag(0))[1])
+        switch_ms.append(event_ms(torch, lambda r=r: flag(1 + r % n_copies))[1])
+    same, switch = statistics.median(same_ms), statistics.median(switch_ms)
+    log(f"    flagship delta-duals B={B} graphed: {same:.3f} ms with the tree the graph holds, "
+        f"{switch:.3f} ms with another tree each call (CUDA events, median of "
+        f"{TOPOLOGY['reps']}, in turns; the parent's replay in turns with this one: "
+        "tools/graph_replay_time.py)")
+    out["flagship_replay_ms"] = dict(same_tree=same, other_tree=switch)
+    held_n = graphs.cached_graphs()
+    del step
+    graphs.clear_graphs()
+    torch.cuda.empty_cache()
+    log(f"    {held_n} graphs held before clear_graphs(); phase {phase} took "
+        f"{time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2895,6 +3073,13 @@ def main() -> None:
     steps = jit_path(mods, 20)
     clock()
     log("    phase 20 (graphed against eager-launched): " + json.dumps(steps))
+
+    # ---- 21. graphs keyed by the tree's topology --------------------------
+    topo = topology_path(mods, 21)
+    entry = next(e for e in kernels if e["name"] == "fused_admm/flagship")
+    entry["topology"] = topo["flagship_replay_ms"]
+    clock()
+    log("    phase 21: " + json.dumps(topo))
 
     log(f"done in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

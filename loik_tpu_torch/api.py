@@ -150,7 +150,7 @@ class DiffIkSolver:
         if problem is not None:
             self.problem = problem
         tree = self.tree
-        self._liMi = graphs.run("fwd_pass_init", tree, (), lambda q: fwd_pass_init(tree, q),
+        self._liMi = graphs.run("fwd_pass_init", tree, (), fwd_pass_init,
                                 (_as_batch(tree, q),))
 
     def resolve(self) -> SolveResult:
@@ -208,12 +208,12 @@ class DiffIkSolver:
         A = None if A is None else self._tensor(A, self.problem.A)
         b = None if b is None else self._tensor(b, self.problem.b)
 
-        def tick(q, problem, A, b, warm):
+        def tick(tree, q, problem, A, b, warm):
             prob = problem.update_constraint(slot, A=A, b=b)
             if fused:
-                res = _fused_body(self.params, batch_tile, self.tree, q, prob, warm)
+                res = _fused_body(self.params, batch_tile, tree, q, prob, warm)
             else:
-                res = _solve_impl(self.tree, self.params, q, prob, warm)
+                res = _solve_impl(tree, self.params, q, prob, warm)
             return res, None if A is None else prob.A, None if b is None else prob.b
 
         res, A_new, b_new = graphs.run(

@@ -53,11 +53,11 @@ import ctypes
 import dataclasses
 import threading
 import warnings
-import weakref
 from typing import Optional
 
 import torch
 
+from ..model.tree import derived
 from ..params import SolverParams
 from ..problem import IkProblem, validate_problem
 from ..solver.solve import _as_batch, _solve_impl, _solve_loop
@@ -330,27 +330,20 @@ def resolve_fused(fused, tree, params: SolverParams, B: int, batch_tile: int,
     return bool(fused)
 
 
-# (id(tree), dtype) -> (weak reference to the tree, its S operand)
-_S_OPERANDS: dict = {}
-
-
 def _subspace_operand(tree, dtype) -> torch.Tensor:
     """The kernel's shared S operand: every joint's constant motion
     subspace, zero-padded to (N, 6, nv_max), in ``dtype`` on the tree's
-    device.  Built once per tree object and dtype; a tree is immutable, and
-    the entry goes when the tree does.  (`KinematicTree.to` returns the tree
-    itself when nothing changes, so a float32 tree on the card keeps its
-    operand from solve to solve.)  Not for trees with batched geometry: their
-    subspaces are per problem and travel as `PreparedProblem.S_all`."""
+    device.  Built once per tree object and dtype and kept as long as the
+    tree lives (`model.tree.derived`; a captured graph that takes another
+    tree's leaves recomputes it in place with `refresh_derived`).
+    (`KinematicTree.to` returns the tree itself when nothing changes, so a
+    float32 tree on the card keeps its operand from solve to solve.)  Not
+    for trees with batched geometry: their subspaces are per problem and
+    travel as `PreparedProblem.S_all`."""
     if tree.has_batched_geometry:
         raise ValueError("a tree with batched geometry has no shared S operand")
-    key = (id(tree), dtype)
-    hit = _S_OPERANDS.get(key)
-    if hit is not None and hit[0]() is tree:
-        return hit[1]
-    S = tree.joint_S_padded().to(dtype).contiguous()
-    _S_OPERANDS[key] = (weakref.ref(tree, lambda _: _S_OPERANDS.pop(key, None)), S)
-    return S
+    return derived(tree, ("S", dtype),
+                   lambda t: t.joint_S_padded().to(dtype).contiguous())
 
 
 def _launch(tree, params: SolverParams, prob: PreparedProblem,
@@ -557,6 +550,6 @@ def solve_fused(tree, params: SolverParams, q, problem: IkProblem,
     validate_problem(tree, problem)
     return graphs.run(
         "solve_fused", tree, (params, batch_tile),
-        lambda q_, problem_, warm_: _fused_body(params, batch_tile, tree, q_,
-                                                problem_, warm_),
+        lambda tree_, q_, problem_, warm_: _fused_body(params, batch_tile, tree_, q_,
+                                                       problem_, warm_),
         (q, problem, warm_state))

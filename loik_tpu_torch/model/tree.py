@@ -217,32 +217,18 @@ class KinematicTree:
                 return None
             return x.to(device=device or x.device, dtype=dtype or x.dtype)
 
-        return dataclasses.replace(
-            self,
-            placement_R=conv(self.placement_R),
-            placement_p=conv(self.placement_p),
-            axis=conv(self.axis),
-            velocity_limit=conv(self.velocity_limit),
-            axis2=conv(self.axis2),
-            placement2_R=conv(self.placement2_R),
-            placement2_p=conv(self.placement2_p),
-        )
+        return dataclasses.replace(self, **{f: conv(getattr(self, f)) for f in _LEAVES})
 
     def astype(self, dtype: torch.dtype) -> "KinematicTree":
         """The tree in ``dtype``: the tree itself when it is in ``dtype``
         already, else ONE cast tree per (tree, dtype), kept as long as this
-        tree lives.  A solve that casts on every call (the delta-duals
-        refinement's float32 and float64 trees) then hands a captured CUDA
-        graph the same tree, whose tensors the graph reads, every call."""
+        tree lives (`derived`).  A solve that casts on every call (the
+        delta-duals refinement's float32 and float64 trees) then hands a
+        captured CUDA graph the same tree, whose tensors the graph reads,
+        every call."""
         if dtype == self.dtype:
             return self
-        key = (id(self), dtype)
-        hit = _CASTS.get(key)
-        if hit is not None and hit[0]() is self:
-            return hit[1]
-        cast = self.to(dtype=dtype)
-        _CASTS[key] = (weakref.ref(self, lambda _, casts=_CASTS: casts.pop(key, None)), cast)
-        return cast
+        return derived(self, ("astype", dtype), lambda t: t.to(dtype=dtype))
 
     # ------------------------------------------------------------------ #
     # motion subspaces
@@ -569,8 +555,57 @@ class KinematicTree:
                 torch.stack(oMi_R, dim=-3), torch.stack(oMi_p, dim=-2))
 
 
-# (id(tree), dtype) -> (weak reference to the tree, the tree cast to dtype)
-_CASTS: dict = {}
+# id(tree) -> (weak reference to the tree, {key: (make, make(tree))}): the
+# values `derived` keeps for a tree, in the order they were made
+_DERIVED: dict = {}
+
+
+def derived(tree: KinematicTree, key, make):
+    """``make(tree)``, made once per (tree, ``key``) and kept as long as the
+    tree lives: its casts (`KinematicTree.astype`) and the fused kernel's
+    S operand.  ``make`` computes a tensor or a tree from the tree's
+    leaves.  A tree is immutable; a captured CUDA graph that overwrites the
+    leaves of the tree it holds in place brings these values up to date
+    with `refresh_derived`."""
+    tid = id(tree)
+    slot = _DERIVED.get(tid)
+    if slot is None or slot[0]() is not tree:
+        slot = _DERIVED[tid] = (weakref.ref(tree, lambda ref: _forget(ref, tid)), {})
+    hit = slot[1].get(key)
+    if hit is None:
+        hit = slot[1][key] = (make, make(tree))
+    return hit[1]
+
+
+def _forget(ref, tid) -> None:
+    slot = _DERIVED.get(tid)
+    if slot is not None and slot[0] is ref:
+        del _DERIVED[tid]
+
+
+def refresh_derived(tree: KinematicTree) -> None:
+    """Recompute in place, from the tree's leaves as they are now, every
+    value `derived` keeps for ``tree``, in the order they were made, and
+    then those of each derived tree (a cast's S operand): the same
+    operations as the first time, so the same bits."""
+    slot = _DERIVED.get(id(tree))
+    if slot is None or slot[0]() is not tree:
+        return
+    for make, value in list(slot[1].values()):
+        new = make(tree)
+        if isinstance(value, KinematicTree):
+            for f in _LEAVES:
+                dst = getattr(value, f)
+                if dst is not None:
+                    dst.copy_(getattr(new, f))
+            refresh_derived(value)
+        else:
+            value.copy_(new)
+
+
+# the tensor leaves of a tree, in loik_tpu's pytree order
+_LEAVES = ("placement_R", "placement_p", "axis", "velocity_limit", "axis2",
+           "placement2_R", "placement2_p")
 
 COMPOSITE = "composite"  # make_tree-level sugar, expanded before building
 

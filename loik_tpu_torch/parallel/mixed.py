@@ -137,11 +137,12 @@ class MixedPadded:
         (`utils.graphs`, the counterpart of loik_tpu's `_packed_solve_jit`);
         a ``solve_fn`` runs after an eager packing, as its own graph where
         it is one (a new function object would be a new key every call)."""
-        run, chain, problem = solve_fn or solve, self.chain, self.problem
+        run, chain, problem, nj = solve_fn or solve, self.chain, self.problem, self.group_njoints
         validate_problem(chain, problem)
-        return graphs.run("solve_packed", chain, (params,),
-                          lambda qs: run(chain, params, self.pack_q(qs), problem),
-                          (self._tensors(qs),),
+        return graphs.run("solve_packed", chain, (params, nj),
+                          lambda chain, problem, qs: run(chain, params, _pack_q(chain, nj, qs),
+                                                         problem),
+                          (problem, self._tensors(qs)),
                           capture=solve_fn is None and not params.verbose)
 
     def pack_q_stacked(self, qs_stacked: Sequence[object]) -> torch.Tensor:
@@ -150,8 +151,8 @@ class MixedPadded:
         `solve_scan(q_packed=...)` run the solves alone.  On CUDA tensors a
         captured CUDA graph per key (loik_tpu's `_pack_stacked_jit`)."""
         chain, nj = self.chain, self.group_njoints
-        return graphs.run("pack_q_stacked", chain, (nj,), lambda qs: _pack_q(chain, nj, qs),
-                          (self._tensors(qs_stacked),))
+        return graphs.run("pack_q_stacked", chain, (nj,),
+                          lambda chain, qs: _pack_q(chain, nj, qs), (self._tensors(qs_stacked),))
 
     def solve_scan(self, params: SolverParams,
                    qs_stacked: Optional[Sequence[object]] = None, solve_fn=None,
@@ -181,12 +182,12 @@ class MixedPadded:
         xs = (torch.as_tensor(q_packed, device=chain.device) if packed
               else self._tensors(qs_stacked))
 
-        def tick(carry, x, _):
+        def tick(chain, carry, x, problem):
             q = x if packed else _pack_q(chain, nj, x)
             return carry, _scan_outputs(run(chain, params, q, problem), light)
 
         R = (xs if packed else xs[0]).shape[0]
-        _, ys = graphs.scan("solve_scan", chain, (params, light, nj), tick, (), xs, None, R,
+        _, ys = graphs.scan("solve_scan", chain, (params, light, nj), tick, (), xs, problem, R,
                             capture=solve_fn is None and not params.verbose)
         return ys
 
@@ -341,12 +342,14 @@ def solve_mixed_padded(
     `refine.solve_delta_duals` for tol-1e-6 runs).  The fused kernel supports
     the batched geometry leaves used here via precomputed per-problem motion
     subspaces (PreparedProblem.S_all), so the delta-duals backend runs both
-    its stages in the kernel.  The chain is new on every call, so a
-    solve_fn that runs as a CUDA graph runs uncaptured here
-    (`utils.graphs.inline`): its capture would never be replayed.
+    its stages in the kernel.  The chain is a new tree on every call, but
+    of one topology for one fleet (its name, joint names, types and
+    parents, its leaves' shapes follow from the groups' trees and batch
+    sizes), so a second call with the same fleet replays the graphs of the
+    first on its own geometry, as loik_tpu's `_packed_solve_jit` compiles
+    once per fleet topology.
     """
     mp = prepare_mixed_padded(
         [(t, q.shape[0], p) for t, q, p in groups], dtype
     )
-    with graphs.inline():
-        return mp.solve(params, [q for _, q, _ in groups], solve_fn=solve_fn)
+    return mp.solve(params, [q for _, q, _ in groups], solve_fn=solve_fn)

@@ -121,7 +121,7 @@ def solve_multistart(tree, params: SolverParams, problem: IkProblem,
     validate_problem(tree, problem)
     num_seeds = int(num_seeds)
 
-    def body(problem, gen=None):
+    def body(tree, problem, gen=None):
         qs = tree.random_configuration((num_seeds,), generator=gen)
         return multistart_from_configs(tree, params, problem, qs, k, solve_fn, mesh)
 

@@ -164,17 +164,17 @@ def solve_clik(tree, params: SolverParams, q0, target_R, target_p,
     cold = init_state(tree, B, 1, dtype, dev)
     st = cold if warm_state is None else warm_state
 
-    def pose_error(q, target_R, target_p):
+    def pose_error(tree, q, target_R, target_p):
         _, _, oR, op = tree.fwd_kinematics(q)
         Ri, pi = spatial.se3_inverse(oR[..., link, :, :], op[..., link, :])
         Rd, pd = spatial.se3_compose(Ri, pi, target_R, target_p)
         return spatial.se3_log(Rd, pd)                 # (B, 6) local frame
 
-    def tick(carry, _, consts):
+    def tick(tree, carry, _, consts):
         q, st = carry[:2]
         target_R_, target_p_, problem_, cold_ = consts
         with full_f32_matmul():
-            err = pose_error(q, target_R_, target_p_)
+            err = pose_error(tree, q, target_R_, target_p_)
             v_cmd = gain * err
             if max_task_velocity is not None:
                 mag = v_cmd.abs().amax(-1, keepdim=True)
@@ -202,7 +202,7 @@ def solve_clik(tree, params: SolverParams, q0, target_R, target_p,
         tick, carry, None, (target_R, target_p, problem, cold), steps,
         capture=not params.verbose)
     with full_f32_matmul():
-        err_final = pose_error(q, target_R, target_p)
+        err_final = pose_error(tree, q, target_R, target_p)
     pos_err = torch.linalg.norm(err_final[..., :3], dim=-1)
     rot_err = torch.linalg.norm(err_final[..., 3:], dim=-1)
     return ClikResult(

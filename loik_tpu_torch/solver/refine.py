@@ -146,11 +146,10 @@ def solve_delta_duals(
         freeze_infeasible_on_warm_start=True,
     )
     f32, f64 = torch.float32, torch.float64
-    tree32, tree64 = tree.astype(f32), tree.astype(f64)
 
-    def body(q, problem, warm_state):
+    def body(tree, q, problem, warm_state):
         return _delta_duals(
-            tree32, tree64, p1, p2, q,
+            tree.astype(f32), tree.astype(f64), p1, p2, q,
             _cast_problem(problem, f32), _cast_problem(problem, f64),
             _cast_state(warm_state, f32) if warm_state is not None else None,
             fused=fused, batch_tile=batch_tile,
@@ -336,12 +335,11 @@ def solve_two_stage(
             f"solve_two_stage: fused_stage1=True but the fused kernel cannot "
             f"run here: {reason}")
     f32, f64 = torch.float32, torch.float64
-    tree32, tree64 = tree.astype(f32), tree.astype(f64)
     fused_stage1 = bool(fused_stage1)
 
-    def body(q, problem, warm_state):
+    def body(tree, q, problem, warm_state):
         return _two_stage(
-            tree32, tree64, p1, p2, q,
+            tree.astype(f32), tree.astype(f64), p1, p2, q,
             _cast_problem(problem, f32), _cast_problem(problem, f64),
             _cast_state(warm_state, f32) if warm_state is not None else None,
             fused_stage1=fused_stage1, batch_tile=batch_tile,
@@ -407,12 +405,12 @@ def solve_delta_refined(
         freeze_infeasible_on_warm_start=True,
         max_iter=stage2_max_iter or max(60, params.max_iter // 2),
     )
-    tree32 = tree.astype(torch.float32)
     from ..utils import graphs
 
     return graphs.run(
         "solve_delta_refined", tree, (p1, p2),
-        lambda q, problem: _delta_refined(tree32, p1, p2, q, problem),
+        lambda tree, q, problem: _delta_refined(tree.astype(torch.float32), p1, p2, q,
+                                                problem),
         (q, problem), capture=not params.verbose)
 
 

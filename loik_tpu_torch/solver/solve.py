@@ -756,7 +756,7 @@ def solve_from_fk(tree, params: SolverParams, liMi_R, liMi_p,
     (loik-loid-optimized.hpp:335-361).  Captured as `solve` is."""
     from ..utils import graphs
 
-    def body(liMi_R, liMi_p, problem, warm_state):
+    def body(tree, liMi_R, liMi_p, problem, warm_state):
         return _solve_impl(tree, params, None, problem, warm_state, liMi=(liMi_R, liMi_p))
 
     return graphs.run("solve_from_fk", tree, (params,), body,
@@ -792,7 +792,7 @@ def solve(tree, params: SolverParams, q, problem: IkProblem,
     validate_problem(tree, problem)
     from ..utils import graphs
 
-    def body(q, problem, warm_state):
+    def body(tree, q, problem, warm_state):
         return _solve_impl(tree, params, q, problem, warm_state)
 
     return graphs.run("solve", tree, (params,), body,

@@ -124,7 +124,7 @@ def solve_stream(tree, params: SolverParams, q, problem: IkProblem,
     elif refine == "delta":
         warm_state = _cast_state(warm_state, torch.float32)
 
-    def tick(st, x, consts):
+    def tick(tree, st, x, consts):
         b_t, A_t, q_t = x
         q_fixed, problem_ = consts
         prob = problem_.update_constraint(slot, A=A_t, b=b_t)

@@ -13,11 +13,11 @@ tensors those entry points run their body through this module, which
 captures it ONCE per key as a CUDA graph and replays the graph on later
 calls:
 
-- `run(tag, tree, statics, body, args)`: one call of ``body(*args)``.  The
-  tensors of ``args`` are copied into the graph's static input buffers,
-  the graph is replayed, and the outputs are cloned, so every result is a
-  fresh tensor (as JAX's arrays are) and a later call never overwrites an
-  earlier result.
+- `run(tag, tree, statics, body, args)`: one call of ``body(tree, *args)``.
+  The tensors of ``tree`` and ``args`` are copied into the graph's static
+  input buffers, the graph is replayed, and the outputs are cloned, so
+  every result is a fresh tensor (as JAX's arrays are) and a later call
+  never overwrites an earlier result.
 - `scan(tag, tree, statics, tick, carry, xs, consts, length)`: the
   counterpart of a `lax.scan` inside `jit`.  One tick is captured and
   replayed ``length`` times; the carry lives in the graph's own buffers,
@@ -34,20 +34,28 @@ calls:
   level: ``fn``'s whole call, the backward of `torch.autograd.grad` inside
   it included, as one graph (the differentiable solve's training step).
 
-The key is the jit cache key: the tree by identity (held by a weak
-reference: the tree's graphs go when it does), the entry point's ``tag``
-and ``statics`` (the `SolverParams` and every other argument the body
-bakes in, such as `batch_tile`, the stage caps or a tick count: they mirror
-`loik_tpu`'s ``static_argnums`` one for one), and the structure of the
-inputs with the device, dtype and shape of every tensor, including which
-optional inputs were given.  Constants in the inputs (constraint links) are
-part of it too.  Everything the fused kernel's launch bakes into its graph
-node (`kernels.fused._LoikConfig`) follows from these.  `jit` keys a
-function the same way (``fn`` by identity), but traces the Python and numpy
-numbers among its arguments as `jax.jit` does: each is keyed by its type
-only and reaches the graph as a 0-d tensor, so a new value replays; only
-the arguments named by ``static_argnums`` / ``static_argnames`` are keyed by
-value and baked in.
+The key is the jit cache key: the tree's topology, as `jax.jit` keys
+loik_tpu's pytree by its aux data (parents, joint types, dof indexing,
+joint names, the robot's name, pitches, mimic pairs, and for each tensor
+leaf whether it is there, its shape, dtype and device; never the tree's
+identity or values), the entry point's ``tag`` and ``statics`` (the
+`SolverParams` and every other argument the body bakes in, such as
+`batch_tile`, the stage caps or a tick count: they mirror `loik_tpu`'s
+``static_argnums`` one for one), and the structure of the inputs with the
+device, dtype and shape of every tensor, including which optional inputs
+were given.  Constants in the inputs (constraint links) are part of it
+too.  Everything the fused kernel's launch bakes into its graph node
+(`kernels.fused._LoikConfig`: the batch, the topology, the parameters)
+follows from these.  The tree's geometry is an input: a graph holds a tree
+rebuilt on its own buffers, and a call with another tree of the topology
+copies that tree's leaves in and recomputes the casts and S operand the
+graph's tree derived from them before it replays (`_Trees`); a call with
+the tree it holds copies nothing of it.  `jit` keys a function the same
+way (``fn`` by identity; a tree among its arguments is an input as here),
+but traces the Python and numpy numbers among its arguments as `jax.jit`
+does: each is keyed by its type only and reaches the graph as a 0-d
+tensor, so a new value replays; only the arguments named by
+``static_argnums`` / ``static_argnames`` are keyed by value and baked in.
 
 Semantics, as JAX's:
 - On by default on the card; `disable_graphs()` (the counterpart of
@@ -59,8 +67,8 @@ Semantics, as JAX's:
   inputs require a gradient (a graph would cut the autograd record).
 
 The recipe is PyTorch's own: a warm-up call on a side stream (it builds
-the kernel library, fills the per-tree caches and sets the kernel's
-shared-memory limit), then the capture on that stream under
+the kernel library, fills the graph tree's casts and S operand and sets the
+kernel's shared-memory limit), then the capture on that stream under
 ``torch.cuda.graph(..., capture_error_mode="thread_local")``.  The warm-up
 is the first call's own work: `run` returns its result (clones, fresh
 like every result), so a first call launches the kernel as often as an
@@ -69,12 +77,13 @@ eager one; a first `scan` runs one warm-up tick and then replays all
 take a lock (`parallel.sharding.run_sharded` solves each card's rows on a
 host thread of its own); each graph takes its own lock around a call.
 Each graph holds a private memory pool for its intermediates
-(`Capture.pool_bytes`); `clear_graphs()` (the counterpart of
-`jax.clear_caches()`) drops every graph.  A graph is never destroyed while
-another one is being captured (destroying a graph releases its pool and
-unregisters its generators, which breaks a capture under way): the graphs
-of a tree that dies, or of `clear_graphs`, wait until the next entry-point
-call outside a capture.
+(`Capture.pool_bytes`).  A graph holds no reference to a caller's tree and
+lives until `clear_graphs()` (the counterpart of `jax.clear_caches()`), a
+`jit` function's graphs until the function goes.  A graph is never
+destroyed while another one is being captured (destroying a graph releases
+its pool and unregisters its generators, which breaks a capture under
+way): the graphs of a `jit` function that dies, or of `clear_graphs`, wait
+until the next entry-point call outside a capture.
 
 A replay launches the fused kernel as often as the capture recorded it
 (`Capture.launches`); each replay adds that many to
@@ -98,11 +107,18 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from ..model.tree import KinematicTree, refresh_derived
+
 # process-wide, like jax.disable_jit: a sharded solve's host threads see it
 _DISABLED = False
-# captures and graph lookups; the cache: id(tree) -> (weak ref, {key: graph})
+# captures and graph lookups
 _LOCK = threading.RLock()
+# the graphs of `run` and `scan` by key (the tree's topology is part of it):
+# they live until `clear_graphs`, as JAX's compile cache does, and hold no
+# reference to a caller's tree
 _CACHE: dict = {}
+# the graphs of `jit` functions: id(fn) -> (weak reference to fn, {key: graph})
+_FNS: dict = {}
 # every graph captured here: id -> (its replay, a weak reference to the
 # call that replays it).  Destroying a graph releases its pool and
 # unregisters its generators, which breaks a capture under way, so a graph
@@ -178,9 +194,7 @@ def disable_graphs(disable: bool = True):
 def inline():
     """Entry points called on this thread inside the block run their bodies
     inline, uncaptured: inside a body being warmed up or captured (as a
-    jitted function called inside another is traced into it), and around a
-    one-shot call whose tree no later call shares, whose capture would
-    never replay."""
+    jitted function called inside another is traced into it)."""
     old = getattr(_INSIDE, "active", False)
     _INSIDE.active = True
     try:
@@ -194,14 +208,16 @@ def clear_graphs() -> None:
     entry point captures again), the counterpart of `jax.clear_caches`."""
     with _LOCK:
         _CACHE.clear()
+        _FNS.clear()
         _drain()
 
 
 def cached_graphs() -> int:
-    """Graphs currently held, over every live tree."""
+    """Graphs currently held: every entry point's and every live `jit`
+    function's."""
     with _LOCK:
         _drain()
-        return sum(len(graphs) for _, graphs in _CACHE.values())
+        return len(_CACHE) + sum(len(graphs) for _, graphs in _FNS.values())
 
 
 def _drain() -> None:
@@ -225,14 +241,19 @@ _NUMBERS = {bool: torch.bool, int: torch.int64, float: torch.float64,
             complex: torch.complex128}
 
 
-def _flatten(x, leaves: list, trace: bool = False):
+def _flatten(x, leaves: list, trace: bool = False, trees=None):
     """Append the tensors of ``x`` (tensors, None, tuples, lists and
     dataclasses of them, hashable constants) to ``leaves``; returns the
     hashable structure that `_unflatten` rebuilds ``x`` from.  With
     ``trace``, a Python bool, int, float or complex or a numpy scalar
     outside a dataclass is a leaf too, appended as it is and keyed by its
     type (a numpy scalar by its dtype), not its value: `jit`'s traced
-    scalars.  A dataclass's fields that are not tensors stay constants."""
+    scalars.  A dataclass's fields that are not tensors stay constants: a
+    `KinematicTree`'s structure is its topology, loik_tpu's pytree aux data
+    (parents, joint types, dof indexing, names, pitches, mimic pairs) and
+    whether each tensor leaf is there, with its shape, dtype and device.
+    ``trees``: a list that gets (first leaf, end of its leaves, the tree)
+    for each tree in ``x``."""
     if isinstance(x, torch.Tensor):
         leaves.append(x)
         return (_T, tuple(x.shape), x.dtype, x.device)
@@ -242,16 +263,22 @@ def _flatten(x, leaves: list, trace: bool = False):
         leaves.append(x)
         return (_S, x.dtype if isinstance(x, np.generic) else type(x))
     if dataclasses.is_dataclass(x):
-        return (type(x), tuple((f.name, _flatten(getattr(x, f.name), leaves))
+        start = len(leaves)
+        spec = (type(x), tuple((f.name, _flatten(getattr(x, f.name), leaves, trees=trees))
                                for f in dataclasses.fields(x)))
+        if trees is not None and isinstance(x, KinematicTree):
+            trees.append((start, len(leaves), x))
+        return spec
     if isinstance(x, (tuple, list)):
-        return (type(x), tuple(_flatten(v, leaves, trace) for v in x))
+        return (type(x), tuple(_flatten(v, leaves, trace, trees) for v in x))
     hash(x)
     return (_C, x)
 
 
-def _unflatten(spec, leaves):
-    """``x`` from its structure and an iterator over its tensors."""
+def _unflatten(spec, leaves, made=None):
+    """``x`` from its structure and an iterator over its tensors; the trees
+    it builds are appended to ``made`` (in `_flatten`'s order of
+    ``trees``)."""
     if spec is None:
         return None
     kind = spec[0]
@@ -260,8 +287,11 @@ def _unflatten(spec, leaves):
     if kind == _C:
         return spec[1]
     if dataclasses.is_dataclass(kind):
-        return kind(**{name: _unflatten(s, leaves) for name, s in spec[1]})
-    return kind(_unflatten(s, leaves) for s in spec[1])
+        x = kind(**{name: _unflatten(s, leaves, made) for name, s in spec[1]})
+        if made is not None and isinstance(x, KinematicTree):
+            made.append(x)
+        return x
+    return kind(_unflatten(s, leaves, made) for s in spec[1])
 
 
 def _map(fn, x):
@@ -288,12 +318,52 @@ def _static(leaves):
     return out
 
 
-def _copy_in(static, leaves):
-    """The tensors of ``leaves`` into ``static`` (a traced number among
-    ``leaves`` is copied in by `_Call`, one copy per dtype)."""
-    for s, t in zip(static, leaves):
-        if isinstance(t, torch.Tensor):
+def _copy_in(static, leaves, skip=()):
+    """The tensors of ``leaves`` into ``static``, but for the positions in
+    ``skip`` (a traced number among ``leaves`` is copied in by `_Call`, one
+    copy per dtype)."""
+    for i, (s, t) in enumerate(zip(static, leaves)):
+        if isinstance(t, torch.Tensor) and i not in skip:
             s.copy_(t)
+
+
+def _dead():
+    return None
+
+
+class _Trees:
+    """The trees among a graph's inputs, as `jax.jit` takes a pytree: the
+    topology is in the key, the leaves are inputs.  The graph holds each
+    as a tree rebuilt on its static buffers (``made``, what the body reads
+    and derives its casts and the kernel's S operand from), and knows by a
+    weak reference which caller's tree the buffers hold now.  A call with
+    that same tree copies none of its leaves (a tree is immutable); a call
+    with another copies them in and recomputes in place what the graph's
+    tree derived from them (`model.tree.refresh_derived`), so the replay
+    reads that tree's geometry.  A failed copy or recomputation raises."""
+
+    def __init__(self, tag, given, made):
+        self.tag, self.made = tag, made
+        self.held = [weakref.ref(t) for _, _, t in given]
+
+    def copy_in(self, static, leaves, given) -> None:
+        """``leaves`` (of a call whose trees are ``given``) into ``static``."""
+        skip, new = set(), []
+        for i, (start, stop, t) in enumerate(given):
+            if self.held[i]() is t:
+                skip.update(range(start, stop))
+            else:
+                self.held[i] = _dead     # until its leaves and derived values are in
+                new.append(i)
+        _copy_in(static, leaves, skip)
+        for i in new:
+            try:
+                refresh_derived(self.made[i])
+            except Exception as e:
+                raise RuntimeError(
+                    f"{self.tag}: recomputing the graph's casts and S operand from a new "
+                    f"tree's leaves failed ({type(e).__name__}: {e})") from e
+            self.held[i] = weakref.ref(given[i][2])
 
 
 def _numbers(tag, leaves, device) -> list:
@@ -442,7 +512,7 @@ _capture = _capture_cuda
 
 def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
     """A call of ``warm_fn`` run for real (the warm-up: it builds the
-    kernel library, fills the per-tree caches, sets the kernel's
+    kernel library, fills the graph tree's casts and S operand, sets the kernel's
     shared-memory limit, and its launches count; it raises what the eager
     call raises), then ``fn``, the same call, captured, with this thread
     marked as inside a body, a failed capture raised under the entry
@@ -726,33 +796,35 @@ _while_node = _while_node_cuda
 _NONE = object()
 
 
-def _forget(ref, tid, cache=_CACHE):
-    """The weakref callback of a tree that died: its calls go (their graphs
-    wait in `_GRAPHS` for `_drain`)."""
-    slot = cache.get(tid)
+def _forget(ref, fid):
+    """The weakref callback of a `jit` function that died: its calls go
+    (their graphs wait in `_GRAPHS` for `_drain`)."""
+    slot = _FNS.get(fid)
     if slot is not None and slot[0] is ref:
-        del cache[tid]
+        del _FNS[fid]
 
 
-def _graph(tag, tree, key, build: Callable):
-    """``(graph, result)``: the graph of ``key`` for ``tree`` and `_NONE`;
-    on a miss, ``build()``'s new graph and the result of the call that
-    built it."""
+def _graph(key, build: Callable, fn=None):
+    """``(graph, result)``: the graph of ``key`` (of the `jit` function
+    ``fn``, when given) and `_NONE`; on a miss, ``build()``'s new graph and
+    the result of the call that built it."""
     with _LOCK:
         _drain()
-        tid = id(tree)
-        slot = _CACHE.get(tid)
-        if slot is None or slot[0]() is not tree:
-            slot = (weakref.ref(tree, functools.partial(_forget, tid=tid)), {})
-            _CACHE[tid] = slot
-        g = slot[1].get(key)
+        graphs = _CACHE
+        if fn is not None:
+            fid = id(fn)
+            slot = _FNS.get(fid)
+            if slot is None or slot[0]() is not fn:
+                slot = _FNS[fid] = (weakref.ref(fn, functools.partial(_forget, fid=fid)), {})
+            graphs = slot[1]
+        g = graphs.get(key)
         if g is not None:
             return g, _NONE
         try:
             g, result = build()
         finally:
             _drain()
-        slot[1][key] = g
+        graphs[key] = g
         return g, result
 
 
@@ -761,15 +833,16 @@ def _bytes(leaves) -> int:
 
 
 class _Call:
-    """A captured call of ``body`` on static copies of its inputs.  The call
-    that captures it is answered by the warm-up (`first`).  With a
-    ``generator`` the body draws from, the warm-up draws from it and the
-    graph from a generator of its own (`rng`), registered with it.  The
-    traced numbers of a `jit` call (``numbers``, `_numbers`: their
-    positions among ``leaves``, which holds them as 0-d tensors) get one
-    static buffer per dtype, whose 0-d views are their inputs."""
+    """A captured call of ``body`` on static copies of its inputs, the
+    trees among them (``trees``, `_flatten`'s) rebuilt on those copies
+    (`_Trees`).  The call that captures it is answered by the warm-up
+    (`first`).  With a ``generator`` the body draws from, the warm-up draws
+    from it and the graph from a generator of its own (`rng`), registered
+    with it.  The traced numbers of a `jit` call (``numbers``, `_numbers`:
+    their positions among ``leaves``, which holds them as 0-d tensors) get
+    one static buffer per dtype, whose 0-d views are their inputs."""
 
-    def __init__(self, tag, body, spec, leaves, generator=None, numbers=()):
+    def __init__(self, tag, body, spec, leaves, trees=(), generator=None, numbers=()):
         self.lock = threading.Lock()
         self.tag = tag
         self.static = _static(leaves)
@@ -782,7 +855,9 @@ class _Call:
         # the body gets detached aliases of the buffers, the same ones in
         # the warm-up and the capture: a `jit` function that marks an input
         # to be differentiated leaves the buffers as they are
-        args = _unflatten(spec, iter([t.detach() for t in self.static]))
+        made: list = []
+        args = _unflatten(spec, iter([t.detach() for t in self.static]), made)
+        self.trees = _Trees(tag, trees, made)
         dev = leaves[0].device
         self.rng = None if generator is None else torch.Generator(device=dev)
         given, own = ((), ()) if generator is None else ((generator,), (self.rng,))
@@ -799,11 +874,11 @@ class _Call:
         _flatten(warm, warm_leaves)
         self.first = _unflatten(self.out_spec, iter(_fresh(warm_leaves)))
 
-    def __call__(self, leaves, generator=None, numbers=()):
+    def __call__(self, leaves, trees=(), generator=None, numbers=()):
         from ..kernels import fused
 
         with self.lock:
-            _copy_in(self.static, leaves)
+            self.trees.copy_in(self.static, leaves, trees)
             for buf, (_, host) in zip(self.numbers, numbers):
                 try:
                     buf.copy_(host, non_blocking=True)
@@ -822,11 +897,17 @@ class _Call:
 
 def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
         capture: bool = True, generator=None):
-    """``body(*args)``: as a replayed CUDA graph when ``capture`` and the
-    tensors of ``args`` lie on the card (and graphs are on), else eagerly.
+    """``body(tree, *args)``: as a replayed CUDA graph when ``capture`` and
+    the tensors of ``tree`` and ``args`` lie on the card (and graphs are
+    on), else eagerly.
 
-    ``statics`` holds every value the body bakes in besides ``tree`` and
-    the structure of ``args``; ``capture=False`` is for bodies that cannot
+    The tree is an input as ``args`` are, as `jax.jit` takes loik_tpu's
+    pytree: its topology is part of the key and its leaves are copied into
+    the graph's buffers, so another tree of the same topology (a robot
+    loaded anew, a calibrated copy) replays the graph on its own geometry
+    (`_Trees`).  The body reads the tree it is given, never a caller's.
+    ``statics`` holds every value the body bakes in besides the structure
+    of ``tree`` and ``args``; ``capture=False`` is for bodies that cannot
     be captured (a verbose solve prints from the host every body call).
     ``generator``: a `torch.Generator` the body draws from, passed to it
     as its last argument (without one, a body draws from torch's default
@@ -838,16 +919,18 @@ def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
     another generator object is no new key (as a new PRNG key is no new
     compile in JAX)."""
     leaves: list = []
-    spec = _flatten(args, leaves)
+    trees: list = []
+    spec = _flatten((tree,) + tuple(args), leaves, trees=trees)
     given = () if generator is None else (generator,)
     if not (capture and _graphable(leaves)):
-        return body(*args, *given)
+        return body(tree, *args, *given)
+
     def build():
-        g = _Call(tag, body, spec, leaves, generator)
+        g = _Call(tag, body, spec, leaves, trees, generator)
         return g, g.first
 
-    g, result = _graph(tag, tree, (tag, statics, spec, bool(given)), build)
-    return g(leaves, generator) if result is _NONE else result
+    g, result = _graph((tag, statics, spec, bool(given)), build)
+    return g(leaves, trees, generator) if result is _NONE else result
 
 
 class ConcretizationTypeError(TypeError):
@@ -912,7 +995,10 @@ def jit(fn: Callable, static_argnums=(), static_argnames=()) -> Callable:
     (its graphs go when it does), the structure of the arguments (tensors,
     None, numbers, tuples, lists and dataclasses of them), each tensor's
     device, dtype and shape, each number's type, and the value of every
-    other argument (hashable: a static, baked into the graph).
+    other argument (hashable: a static, baked into the graph).  A
+    `KinematicTree` among the arguments is keyed by its topology and its
+    leaves are inputs, as in `run`: another tree of the topology replays on
+    its own geometry, the casts and S operand derived from it included.
 
     Numbers are traced, as `jax.jit` traces them: a Python bool, int,
     float or complex, or a numpy scalar, among the arguments (in a tuple or
@@ -972,20 +1058,22 @@ def jit(fn: Callable, static_argnums=(), static_argnames=()) -> Callable:
     nums |= {i for i, p in enumerate(positional) if p in names}
     names |= {positional[i] for i in nums if -len(positional) <= i < len(positional)}
 
-    def split(args, kwargs, leaves, labels):
+    def split(args, kwargs, leaves, labels, trees):
         """The key of a call; its tensors and numbers appended to
-        ``leaves``, each number's argument name put in ``labels``."""
+        ``leaves``, each number's argument name put in ``labels``, its
+        trees in ``trees``."""
         static = {i % len(args) for i in nums if -len(args) <= i < len(args)}
         pos, kw = [], []
         for i, a in enumerate(args):
             n = len(leaves)
-            pos.append(_flatten(a, leaves, trace=i not in static))
+            pos.append(_flatten(a, leaves, trace=i not in static, trees=trees))
             name = f"'{positional[i]}' (argument {i})" if i < len(positional) else f"argument {i}"
             labels.update((j, name) for j in range(n, len(leaves))
                           if not isinstance(leaves[j], torch.Tensor))
         for key in sorted(kwargs):
             n = len(leaves)
-            kw.append((tuple, ((_C, key), _flatten(kwargs[key], leaves, trace=key not in names))))
+            kw.append((tuple, ((_C, key), _flatten(kwargs[key], leaves, trace=key not in names,
+                                                   trees=trees))))
             labels.update((j, f"'{key}'") for j in range(n, len(leaves))
                           if not isinstance(leaves[j], torch.Tensor))
         return (tuple, ((tuple, tuple(pos)), (tuple, tuple(kw))))
@@ -1004,7 +1092,8 @@ def jit(fn: Callable, static_argnums=(), static_argnames=()) -> Callable:
     def jitted(*args, **kwargs):
         leaves: list = []
         labels: dict = {}
-        spec = split(args, kwargs, leaves, labels)
+        trees: list = []
+        spec = split(args, kwargs, leaves, labels, trees)
         tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
         device = tensors[0].device if tensors else torch.device("cpu")
         numbers = _numbers(tag, leaves, device)
@@ -1019,11 +1108,11 @@ def jit(fn: Callable, static_argnums=(), static_argnames=()) -> Callable:
 
         def build():
             g = _Call(tag, functools.partial(body, labels), spec,
-                      _on_device(tag, leaves, device, numbers), numbers=numbers)
+                      _on_device(tag, leaves, device, numbers), trees, numbers=numbers)
             return g, g.first
 
-        g, result = _graph(tag, fn, spec, build)
-        return g(leaves, numbers=numbers) if result is _NONE else result
+        g, result = _graph(spec, build, fn)
+        return g(leaves, trees, numbers=numbers) if result is _NONE else result
 
     return jitted
 
@@ -1039,13 +1128,16 @@ def _stack(ys):
 
 
 class _Scan:
-    """One tick captured on static buffers, replayed ``length`` times."""
+    """One tick captured on static buffers, replayed ``length`` times; the
+    tree rebuilt on its buffers (`_Trees`)."""
 
-    def __init__(self, tag, tick, spec, leaves, length):
+    def __init__(self, tag, tick, spec, leaves, trees, length):
         self.lock = threading.Lock()
         self.length = length
         self.static = _static(leaves)
-        carry, xs, consts = _unflatten(spec, iter(self.static))
+        made: list = []
+        tree, carry, xs, consts = _unflatten(spec, iter(self.static), made)
+        self.trees = _Trees(tag, trees, made)
         carry_leaves: list = []
         carry_spec = _flatten(carry, carry_leaves)
         self.carry_spec, self.carry = carry_spec, carry_leaves
@@ -1056,7 +1148,7 @@ class _Scan:
 
         def step():
             x_t = _map(lambda x: x.index_select(0, self.t)[0], xs)
-            new, y = tick(carry, x_t, consts)
+            new, y = tick(tree, carry, x_t, consts)
             new_leaves: list = []
             if _flatten(new, new_leaves) != carry_spec:
                 raise ValueError(f"{tag}: a tick returned a carry of another "
@@ -1082,11 +1174,11 @@ class _Scan:
         _, self.replay, _, self.launches = _captured(tag, dev, step, step,
                                                      _bytes(self.static), self)
 
-    def __call__(self, leaves):
+    def __call__(self, leaves, trees):
         from ..kernels import fused
 
         with self.lock:
-            _copy_in(self.static, leaves)
+            self.trees.copy_in(self.static, leaves, trees)
             self.t.zero_()
             for _ in range(self.length):
                 self.replay()
@@ -1097,21 +1189,23 @@ class _Scan:
 
 def scan(tag: str, tree, statics: tuple, tick: Callable, carry, xs, consts,
          length: int, capture: bool = True):
-    """``length`` ticks of ``tick(carry, x_t, consts) -> (carry, y_t)``,
-    where ``x_t`` is ``xs`` (tensors with a leading tick axis, or None) at
-    tick t; returns the last carry and the ``y_t`` stacked on a leading
-    tick axis.  The carry keeps its structure, dtypes and shapes from tick
-    to tick.  A replayed CUDA graph of one tick when ``capture`` and the
-    tensors lie on the card (and graphs are on), else a loop of eager
-    ticks."""
+    """``length`` ticks of ``tick(tree, carry, x_t, consts) -> (carry,
+    y_t)``, where ``x_t`` is ``xs`` (tensors with a leading tick axis, or
+    None) at tick t; returns the last carry and the ``y_t`` stacked on a
+    leading tick axis.  The carry keeps its structure, dtypes and shapes
+    from tick to tick.  A replayed CUDA graph of one tick when ``capture``
+    and the tensors lie on the card (and graphs are on), else a loop of
+    eager ticks.  The tree is an input, keyed by its topology, as in
+    `run`."""
     leaves: list = []
-    spec = _flatten((carry, xs, consts), leaves)
+    trees: list = []
+    spec = _flatten((tree, carry, xs, consts), leaves, trees=trees)
     if not (capture and _graphable(leaves)):
         ys = []
         for t in range(length):
-            carry, y = tick(carry, _map(lambda x: x[t], xs), consts)
+            carry, y = tick(tree, carry, _map(lambda x: x[t], xs), consts)
             ys.append(y)
         return carry, _stack(ys)
-    g, _ = _graph(tag, tree, (tag, statics, length, spec),
-                  lambda: (_Scan(tag, tick, spec, leaves, length), _NONE))
-    return g(leaves)
+    g, _ = _graph((tag, statics, length, spec),
+                  lambda: (_Scan(tag, tick, spec, leaves, trees, length), _NONE))
+    return g(leaves, trees)

@@ -29,6 +29,7 @@ The tests marked `cuda` run the real graphs on a card and skip here:
 import dataclasses
 import gc
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -405,7 +406,9 @@ def _variant(change, tree):
     elif change == "params":
         params = params.replace(mu=0.05)
     elif change == "tree":
-        tree = dataclasses.replace(tree)       # the same robot, another tree
+        # another topology: a joint renamed (another tree of the same
+        # topology hits: tests/test_torch_topology.py)
+        tree = dataclasses.replace(tree, joint_names=tree.joint_names[:-1] + ("tool",))
     elif change == "warm":
         with graphs.disable_graphs():       # the eager loop's solve is captured too
             warm = lt.solve_delta_duals(tree, params, q, problem, fused=False).state
@@ -417,7 +420,7 @@ def _variant(change, tree):
 @pytest.mark.parametrize("change", ["B", "dtype", "params", "tree", "warm", "A shape"])
 def test_key_misses_on_what_the_body_bakes_in(change, fake_graphs):
     """The same inputs hit; a new batch size, input dtype, parameter,
-    tree, warm state or a per-problem A misses."""
+    tree topology, warm state or a per-problem A misses."""
     tree, params, q, problem, warm = _variant(None, flagship()[0])
     solve = lt.solve_delta_duals
     solve(tree, params, q, problem, fused=True, warm_state=warm)
@@ -540,7 +543,7 @@ def test_failed_capture_raises_and_caches_nothing(fake_graphs):
     tree, q, _ = flagship()
     calls = []
 
-    def bad(x):
+    def bad(tree, x):
         calls.append(1)
         if len(calls) == 2:        # the warm-up passes, the capture fails
             raise ValueError("not capturable")
@@ -551,7 +554,7 @@ def test_failed_capture_raises_and_caches_nothing(fake_graphs):
         graphs.run("bad body", tree, (), bad, (q,))
     assert graphs.cached_graphs() == n
     assert not graphs._INSIDE.active
-    out = graphs.run("good body", tree, (), lambda x: x * 2, (q,))
+    out = graphs.run("good body", tree, (), lambda tree, x: x * 2, (q,))
     assert torch.equal(out, q * 2) and graphs.cached_graphs() == n + 1
 
 
@@ -560,7 +563,7 @@ def test_scan_refuses_a_carry_that_changes(fake_graphs):
     warm-up tick raises as an eager call would)."""
     tree, q, _ = flagship()
     with pytest.raises(ValueError, match="another structure"):
-        graphs.scan("growing", tree, (), lambda c, x, k: (c.double(), c), q, None, None, 2)
+        graphs.scan("growing", tree, (), lambda t, c, x, k: (c.double(), c), q, None, None, 2)
 
 
 def test_scan_carry_that_swaps_buffers(fake_graphs):
@@ -569,7 +572,7 @@ def test_scan_carry_that_swaps_buffers(fake_graphs):
     tree, q, _ = flagship()
     a, b = q[:, :3].contiguous(), q[:, 3:6].contiguous() * 2
 
-    def tick(c, x, k):
+    def tick(t, c, x, k):
         return (c[1], c[0] + 1), c[0]
 
     got = graphs.scan("swap", tree, (), tick, (a, b), None, None, 3)
@@ -595,26 +598,25 @@ def test_no_recompile_guard_counts_captures(fake_graphs):
 
 
 def test_graphs_and_casts_go_with_their_tree(fake_graphs):
-    """A tree's graphs and its cast trees are dropped when the tree is;
-    `clear_graphs` drops every graph.  `astype` hands back one cast tree
-    per (tree, dtype), and the tree itself for its own dtype."""
+    """A tree's cast trees are dropped when the tree is; its graphs are not
+    (they are keyed by its topology and hold no reference to it, as JAX's
+    compile cache holds none to a pytree) and go at `clear_graphs`.
+    `astype` hands back one cast tree per (tree, dtype), and the tree
+    itself for its own dtype."""
     tree, q, _ = flagship()
     tree = dataclasses.replace(tree)           # one that the robot cache does not hold
     assert tree.astype(torch.float32) is tree
     t64 = tree.astype(torch.float64)
     assert tree.astype(torch.float64) is t64 and t64.dtype == torch.float64
     assert torch.equal(t64.placement_p, tree.placement_p.double())
-    # a body that does not hold the tree (the stand-in capture keeps the
-    # body to replay it; a CUDA graph keeps no Python object)
-    graphs.run("twice", tree, (), lambda x: x * 2, (q,))
+    graphs.run("twice", tree, (), lambda tree, x: x * 2, (q,))
     assert graphs.cached_graphs() == 1
-    key = (id(tree), torch.float64)
-    assert key in ttree._CASTS
+    tid, ref = id(tree), weakref.ref(tree)
+    assert tid in ttree._DERIVED
     del tree, t64
     gc.collect()
-    assert graphs.cached_graphs() == 0 and key not in ttree._CASTS
-    tree = dataclasses.replace(flagship()[0])
-    graphs.run("twice", tree, (), lambda x: x * 2, (q,))
+    assert ref() is None and tid not in ttree._DERIVED
+    assert graphs.cached_graphs() == 1
     graphs.clear_graphs()
     assert graphs.cached_graphs() == 0
 
@@ -728,9 +730,9 @@ def test_card_failed_capture_raises():
     tree = lt.robots.panda_arm("float32", device="cuda")
     x = torch.ones(4, device="cuda")
     with pytest.raises(RuntimeError, match="capturing the CUDA graph failed"):
-        graphs.run("host read", tree, (), lambda t: t * float(t.sum()), (x,))
+        graphs.run("host read", tree, (), lambda _, t: t * float(t.sum()), (x,))
     torch.cuda.synchronize()
-    assert torch.equal(graphs.run("after", tree, (), lambda t: t + 1, (x,)), x + 1)
+    assert torch.equal(graphs.run("after", tree, (), lambda _, t: t + 1, (x,)), x + 1)
 
 
 def card_task(robot, B=512):
@@ -747,6 +749,7 @@ def test_card_graph_equals_eager_on_every_tree(robot):
     the batched-geometry chain): captured, replayed, and equal to the same
     call launched eagerly, bit for bit."""
     _need_card()
+    graphs.clear_graphs()                    # a graph of the topology may be held
     tree, q, problem, links, _ = card_task(robot)
     solver = lt.DiffIkSolver(tree, lt.SolverParams(**FLAGSHIP), links, problem=problem,
                              fused="require")
@@ -806,3 +809,81 @@ def test_card_graph_replays_after_a_smaller_frame():
         want = run(big)
     torch.cuda.synchronize()
     assert_bits(got, want)
+
+
+def turned_copy(tree, seed, deg=3.0, dp=0.02):
+    """A tree of ``tree``'s topology with each axis turned by up to ``deg``
+    degrees about a random direction and each placement moved by up to
+    ``dp`` per coordinate (numpy, ``seed``), on its device."""
+    rng = np.random.default_rng(seed)
+    a = tree.axis.double().cpu().numpy()
+    k = rng.normal(size=a.shape)
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    ang = np.deg2rad(rng.uniform(0, deg, (a.shape[0], 1)))
+    a = a * np.cos(ang) + np.cross(k, a) * np.sin(ang) + k * (k * a).sum(-1, keepdims=True) * (
+        1 - np.cos(ang))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    kw = dict(dtype=tree.dtype, device=tree.device)
+    dpos = torch.as_tensor(rng.uniform(-dp, dp, tuple(tree.placement_p.shape)), **kw)
+    return dataclasses.replace(tree, axis=torch.as_tensor(a, **kw),
+                               placement_p=tree.placement_p + dpos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,dtype", [("solve_delta_duals", "float32"),
+                                        ("solve_delta_duals", "float64"),
+                                        ("solve_fused", "float32")])
+def test_card_graph_reads_each_trees_subspaces(path, dtype):
+    """A graph of the kernel's path on panda_arm, then on a copy with its
+    axes turned and placements moved, then on panda_arm again: one capture,
+    and each result equals the eagerly launched call on its own tree bit
+    for bit, so the kernel's S operand (and, for a float64 tree, its float32
+    cast) was recomputed from the copy's leaves."""
+    _need_card()
+    graphs.clear_graphs()
+    tree = dataclasses.replace(lt.robots.panda_arm(dtype, device="cuda"))
+    other = turned_copy(tree, 3)
+    _, q, problem, _, _ = card_task("panda_arm")
+    q = q.to(tree.dtype)
+    params = lt.SolverParams(**FLAGSHIP)
+
+    def run(t):
+        if path == "solve_fused":
+            return fused.solve_fused(t, params, q, problem)
+        return lt.solve_delta_duals(t, params, q, problem, fused="require")
+
+    n = len(graphs.CAPTURES)
+    got = [run(tree), run(other), run(tree)]
+    assert len(graphs.CAPTURES) == n + 1
+    with graphs.disable_graphs():
+        want = [run(tree), run(other)]
+    torch.cuda.synchronize()
+    assert_bits(got[0], want[0])
+    assert_bits(got[1], want[1])
+    assert_bits(got[2], want[0])
+    assert not torch.equal(got[0].nu, got[1].nu)
+
+
+@pytest.mark.cuda
+def test_card_jit_step_over_the_tree():
+    """A `utils.jit` step whose tree is an argument: another tree of the
+    topology replays the capture and answers with its own geometry (the
+    float32 cast and S operand of a float64 tree), equal to the eager step
+    on it bit for bit."""
+    _need_card()
+    tree = dataclasses.replace(lt.robots.panda_arm("float64", device="cuda"))
+    other = turned_copy(tree, 4)
+    _, q, problem, _, _ = card_task("panda_arm", B=64)
+    q = q.double()
+    params = lt.SolverParams(**FLAGSHIP)
+    step = lt.utils.jit(
+        lambda t, qq, pr: lt.solve_delta_duals(t, params, qq, pr, fused="require").nu)
+    step(tree, q, problem)
+    n = len(graphs.CAPTURES)
+    got = [step(other, q, problem), step(tree, q, problem)]
+    assert len(graphs.CAPTURES) == n
+    with graphs.disable_graphs():
+        want = [step(other, q, problem), step(tree, q, problem)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], got[1])

@@ -294,27 +294,30 @@ def test_multistart_with_fresh_generators_captures_once(fake_graphs):  # noqa: F
 
 def test_a_tree_dropped_during_a_capture_waits_for_its_end(fake_graphs):  # noqa: F811
     """A graph is not destroyed while another is being captured (that
-    releases its memory pool mid-capture): a tree whose last reference
-    another thread drops inside a capture leaves its graphs waiting, and
-    they go once the capture has ended."""
+    releases its memory pool mid-capture).  A tree whose last reference
+    another thread drops inside a capture destroys nothing: graphs are
+    keyed by topology and hold no tree.  The graphs that `clear_graphs`
+    drops inside a capture wait, and go once the capture has ended."""
     q = torch.ones(4)
     old = dataclasses.replace(flagship()[0])
-    graphs.run("twice", old, (), lambda x: x * 2, (q,))
-    [call] = graphs._CACHE[id(old)][1].values()
+    graphs.run("twice", old, (), lambda tree, x: x * 2, (q,))
+    [call] = graphs._CACHE.values()
     dead = weakref.ref(call.replay)             # what holds the graph
     holder, seen = [old], []
     del old, call
 
-    def body(x):
+    def body(tree, x):
         if graphs.capturing():
             t = threading.Thread(target=holder.clear)
             t.start()
             t.join()
+            seen.append(graphs.cached_graphs() == 1 and dead() is not None)
+            graphs.clear_graphs()
             seen.append(dead() is not None)
         return x + 1
 
     tree = dataclasses.replace(flagship()[0])
     graphs.run("plus one", tree, (), body, (q,))
-    assert seen == [True], "the dead tree's graph was destroyed during the capture"
+    assert seen == [True, True], "a graph was destroyed during the capture"
     assert not holder and dead() is None
     assert graphs.cached_graphs() == 1

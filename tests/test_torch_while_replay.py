@@ -35,6 +35,7 @@ def graphed_and_eager(name, robot, device="cpu", B=6):
     their place, the second one's body executions).  Multistart's calls
     draw from one generator, the eager ones from its twin."""
     gen, twin = (torch.Generator(device=device).manual_seed(5) for _ in range(2))
+    graphs.clear_graphs()           # graphs outlive their trees: capture anew
     n0 = len(graphs.CAPTURES)
     first = run_new(name, robot, B, gen=gen, device=device)
     assert len(graphs.CAPTURES) > n0
@@ -112,14 +113,14 @@ def test_card_body_copying_host_data_raises():
     tree = lt.robots.panda_arm("float32", device="cuda")
     x = torch.full((8,), 100.0, device="cuda")
 
-    def bad(x):
+    def bad(tree, x):
         return graphs.while_loop(lambda c: c.amax() > 1.0,
                                  lambda c: c * torch.tensor([0.5], device="cuda"), x)
 
     with pytest.raises(RuntimeError, match="h2d body: capturing the CUDA graph failed"):
         graphs.run("h2d body", tree, (), bad, (x,))
 
-    def good(x):
+    def good(tree, x):
         if graphs.capturing():
             gc.collect()
         return graphs.while_loop(lambda c: c.amax() > 1.0, lambda c: c * 0.5, x)
@@ -175,18 +176,22 @@ def test_card_multistart_with_fresh_generators_captures_once():
 
 @pytest.mark.cuda
 def test_card_tree_dropped_by_another_thread_during_a_capture():
-    """Another thread drops the last reference to a tree with graphs while
-    this one captures: its graphs (and their pools) go after the capture,
-    which completes and replays correctly."""
+    """Another thread drops the last references to a tree and to a `jit`
+    function with a graph while this one captures: the tree's death
+    destroys nothing (graphs are keyed by topology and hold no tree), the
+    function's graph (and its pool) goes after the capture, which completes
+    and replays correctly."""
     _need_card()
     tree, q, problem, _, _ = inputs("panda_arm", 64, "cuda")
     params = lt.SolverParams(max_iter=30, tol_abs=1e-4, tol_rel=1e-4)
-    other = dataclasses.replace(tree)          # another tree: graphs of its own
+    other = dataclasses.replace(tree)          # another tree of the topology
     lt.solve(other, params, q, problem)
-    holder, held = [other], graphs.cached_graphs()
-    del other
+    step = lt.utils.jit(lambda x: x * 3)
+    step(q)
+    holder, held = [other, step], graphs.cached_graphs()
+    del other, step
 
-    def body(q, problem):
+    def body(tree, q, problem):
         if graphs.capturing():
             t = threading.Thread(target=holder.clear)
             t.start()
