@@ -1,0 +1,6 @@
+"""Robots times ticks answered in the window, over the window's length
+(host clock, from the first call to the last answer)."""
+
+
+def read(ctx):
+    return ctx.window.units / ctx.window.seconds
