@@ -24,6 +24,7 @@ from .solver.refine import default_batch_tile, solve_delta_duals, solve_two_stag
 from .solver.solve import _as_batch, _solve_impl, fwd_pass_init, solve_from_fk
 from .solver.state import SolveResult, SolverState
 from .solver.stream import StreamResult, solve_stream
+from .utils.observability import phase, span
 
 
 class DiffIkSolver:
@@ -92,13 +93,14 @@ class DiffIkSolver:
     def solve(self, q, problem: Optional[IkProblem] = None) -> SolveResult:
         """Stand-alone solve (cold unless params.warm_start); on CUDA
         tensors one captured CUDA graph per key, as `solver.solve`."""
-        if problem is not None:
-            self.problem = problem
-        res = solve(self.tree, self.params, q, self.problem,
-                    self._state if self.params.warm_start else None)
-        self._state = res.state
-        self.last_result = res
-        return res
+        with span("api.solve"):
+            if problem is not None:
+                self.problem = problem
+            res = solve(self.tree, self.params, q, self.problem,
+                        self._state if self.params.warm_start else None)
+            self._state = res.state
+            self.last_result = res
+            return res
 
     def solve_refined(self, q, problem: Optional[IkProblem] = None,
                       method: str = "delta", **refine_kw) -> SolveResult:
@@ -115,6 +117,10 @@ class DiffIkSolver:
         float32 stages: for two-stage None stays None (the kernel where
         eligible, silently), False stays False, True and "require" require
         the kernel.  Keyword args forward to the chosen backend."""
+        with span("api.solve_refined"):
+            return self._solve_refined(q, problem, method, refine_kw)
+
+    def _solve_refined(self, q, problem, method, refine_kw) -> SolveResult:
         if method not in ("delta", "two-stage"):
             raise ValueError(
                 f"method must be 'delta' or 'two-stage'; got {method!r}")
@@ -147,11 +153,12 @@ class DiffIkSolver:
         counterpart of loik_tpu's `fwd_pass_init_jit`)."""
         from .utils import graphs
 
-        if problem is not None:
-            self.problem = problem
-        tree = self.tree
-        self._liMi = graphs.run("fwd_pass_init", tree, (), fwd_pass_init,
-                                (_as_batch(tree, q),))
+        with span("api.solve_init"):
+            if problem is not None:
+                self.problem = problem
+            tree = self.tree
+            self._liMi = graphs.run("fwd_pass_init", tree, (), fwd_pass_init,
+                                    (_as_batch(tree, q),))
 
     def resolve(self) -> SolveResult:
         """Re-run only the main loop on the FK frozen by `solve_init`.
@@ -165,12 +172,13 @@ class DiffIkSolver:
         tensors one captured CUDA graph per key (`solve_from_fk`)."""
         if self._liMi is None:
             raise RuntimeError("call solve_init first")
-        res = solve_from_fk(self.tree, self.params, self._liMi[0],
-                            self._liMi[1], self.problem,
-                            self._state if self.params.warm_start else None)
-        self._state = res.state
-        self.last_result = res
-        return res
+        with span("api.resolve"):
+            res = solve_from_fk(self.tree, self.params, self._liMi[0],
+                                self._liMi[1], self.problem,
+                                self._state if self.params.warm_start else None)
+            self._state = res.state
+            self.last_result = res
+            return res
 
     def _slot(self, link: Optional[int]) -> int:
         if link is None:
@@ -193,6 +201,10 @@ class DiffIkSolver:
         of loik_tpu's `_tracking_jit`), and the call returns without
         waiting for the device (eagerly as `solver.solve` is, e.g. with
         ``params.verbose``)."""
+        with span("api.solve_tracking"):
+            return self._solve_tracking(q, link, A, b)
+
+    def _solve_tracking(self, q, link, A, b) -> SolveResult:
         from .kernels.fused import _fused_body, resolve_fused
         from .utils import graphs
 
@@ -209,7 +221,8 @@ class DiffIkSolver:
         b = None if b is None else self._tensor(b, self.problem.b)
 
         def tick(tree, q, problem, A, b, warm):
-            prob = problem.update_constraint(slot, A=A, b=b)
+            with phase("solver.update"):
+                prob = problem.update_constraint(slot, A=A, b=b)
             if fused:
                 res = _fused_body(self.params, batch_tile, tree, q, prob, warm)
             else:
@@ -240,20 +253,21 @@ class DiffIkSolver:
         state/targets become the solver's warm state and constraint values,
         so per-tick `solve_tracking` calls and further streams continue
         seamlessly."""
-        slot = self._slot(link)
-        q = torch.as_tensor(q, device=self.tree.device)
-        if q.ndim == 1:
-            q = q[None]
-        stream = solve_stream(
-            self.tree, self.params, q, self.problem, slot,
-            b_seq, A_seq=A_seq,
-            warm_state=self._state if self.params.warm_start else None,
-            refine=refine, fused=self.fused,
-        )
-        self._state = stream.state
-        self.problem = self.problem.update_constraint(
-            slot, A=None if A_seq is None else A_seq[-1], b=b_seq[-1])
-        return stream
+        with span("api.track_scan"):
+            slot = self._slot(link)
+            q = torch.as_tensor(q, device=self.tree.device)
+            if q.ndim == 1:
+                q = q[None]
+            stream = solve_stream(
+                self.tree, self.params, q, self.problem, slot,
+                b_seq, A_seq=A_seq,
+                warm_state=self._state if self.params.warm_start else None,
+                refine=refine, fused=self.fused,
+            )
+            self._state = stream.state
+            self.problem = self.problem.update_constraint(
+                slot, A=None if A_seq is None else A_seq[-1], b=b_seq[-1])
+            return stream
 
     def reach(self, q0, target_R, target_p, link: Optional[int] = None,
               **kw) -> ClikResult:
@@ -271,8 +285,9 @@ class DiffIkSolver:
                 "reach() needs this solver to have exactly one constraint "
                 f"at link {link}; got links {self.constraint_links}"
             )
-        return solve_clik(self.tree, self.params, q0, target_R, target_p,
-                          link, problem=self.problem, fused=self.fused, **kw)
+        with span("api.reach"):
+            return solve_clik(self.tree, self.params, q0, target_R, target_p,
+                              link, problem=self.problem, fused=self.fused, **kw)
 
     # ------------------------------------------------------------------ #
     # getter parity (task-solver-base.hpp:87-141)

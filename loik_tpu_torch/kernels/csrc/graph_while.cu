@@ -19,8 +19,19 @@
 // At replay the node runs its body graph again and again while the condition
 // is nonzero, with no host round trip.  Needs CUDA 12.4 (WHILE nodes and
 // cudaStreamBeginCaptureToGraph); plain C interface, loaded with ctypes.
+//
+// `loik_graph_nodes` lists a captured graph's nodes (types, dependencies,
+// kernel names) for `utils.graphs.node_kinds`, by which a profiler trace of a
+// replay is split into the solver's phases; `loik_capture_graph` finds a WHILE
+// node's body graph for it.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <cxxabi.h>
+
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
 
 #if CUDART_VERSION < 12040
 #error "the device-side while loop needs CUDA 12.4 or later (conditional WHILE nodes)"
@@ -34,6 +45,7 @@
   cudaGraphAddNode(node, graph, deps, nullptr, n, params)
 #define LOIK_SET_DEPS(s, deps, n) \
   cudaStreamUpdateCaptureDependencies(s, deps, nullptr, n, cudaStreamSetCaptureDependencies)
+#define LOIK_NODE_DEPS(node, deps, n) cudaGraphNodeGetDependencies(node, deps, nullptr, n)
 #else
 #define LOIK_CAPTURE_INFO(s, status, graph, deps, n) \
   cudaStreamGetCaptureInfo(s, status, nullptr, graph, deps, n)
@@ -41,6 +53,7 @@
   cudaGraphAddNode(node, graph, deps, n, params)
 #define LOIK_SET_DEPS(s, deps, n) \
   cudaStreamUpdateCaptureDependencies(s, deps, n, cudaStreamSetCaptureDependencies)
+#define LOIK_NODE_DEPS(node, deps, n) cudaGraphNodeGetDependencies(node, deps, n)
 #endif
 
 // One thread: the loop continues while *flag (a bool tensor) is true; at the
@@ -109,6 +122,140 @@ int loik_capture_nodes(void* stream, unsigned long long* n_out) {
   LOIK_TRY(cudaGraphGetNodes(graph, nullptr, &n));
   *n_out = n;
   return cudaSuccess;
+}
+
+// The graph being captured on `stream` (a WHILE node's body graph, read before
+// its capture ends: it lives on in the node).
+int loik_capture_graph(void* stream, void** graph_out) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  LOIK_TRY(LOIK_CAPTURE_INFO((cudaStream_t)stream, &status, &graph, &deps, &n_deps));
+  if (status != cudaStreamCaptureStatusActive) return cudaErrorStreamCaptureImplicit;
+  *graph_out = graph;
+  return cudaSuccess;
+}
+
+}  // extern "C"
+
+// A CUDA driver API entry point (the runtime has no call that names a kernel node's
+// function), or null.
+static void* loik_driver(const char* symbol) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion(symbol, &fn, 12030, cudaEnableDefault, &found);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint(symbol, &fn, cudaEnableDefault, &found);
+#endif
+  if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+    (void)cudaGetLastError();
+    return nullptr;
+  }
+  return fn;
+}
+
+typedef CUresult (*loik_kernel_params_t)(CUgraphNode, CUDA_KERNEL_NODE_PARAMS*);
+typedef CUresult (*loik_func_name_t)(const char**, CUfunction);
+typedef CUresult (*loik_kernel_name_t)(const char**, CUkernel);
+
+// The mangled name of a kernel node's function, or null.
+static const char* loik_kernel_name(cudaGraphNode_t node) {
+  static loik_kernel_params_t params_of =
+      (loik_kernel_params_t)loik_driver("cuGraphKernelNodeGetParams");
+  static loik_func_name_t func_name = (loik_func_name_t)loik_driver("cuFuncGetName");
+  static loik_kernel_name_t kernel_name = (loik_kernel_name_t)loik_driver("cuKernelGetName");
+  CUDA_KERNEL_NODE_PARAMS p;
+  std::memset(&p, 0, sizeof(p));
+  if (!params_of || params_of((CUgraphNode)node, &p) != CUDA_SUCCESS) return nullptr;
+  const char* name = nullptr;
+  if (p.func && func_name && func_name(&name, p.func) == CUDA_SUCCESS) return name;
+  if (p.kern && kernel_name && kernel_name(&name, p.kern) == CUDA_SUCCESS) return name;
+  return nullptr;
+}
+
+typedef CUresult (*loik_node_type_t)(CUgraphNode, CUgraphNodeType*);
+
+// A node's type: the runtime's answer, else the CUDA driver API's (CUDA 12.8's runtime
+// fails with cudaErrorUnknown on a WHILE node added by loik_while_begin).
+static cudaError_t loik_node_type(cudaGraphNode_t node, cudaGraphNodeType* type) {
+  cudaError_t e = cudaGraphNodeGetType(node, type);
+  if (e == cudaSuccess) return e;
+  (void)cudaGetLastError();
+  static loik_node_type_t type_of = (loik_node_type_t)loik_driver("cuGraphNodeGetType");
+  CUgraphNodeType t;
+  if (!type_of || type_of((CUgraphNode)node, &t) != CUDA_SUCCESS) return e;
+  *type = (cudaGraphNodeType)t;
+  return cudaSuccess;
+}
+
+static size_t loik_put(char* out, size_t cap, size_t used, const char* s) {
+  size_t n = std::strlen(s);
+  if (used + n <= cap) std::memcpy(out + used, s, n);
+  return used + n;
+}
+
+extern "C" {
+
+// The nodes of `graph` in cudaGraphGetNodes' order: each one's
+// cudaGraphNodeType in `types`, in `chained` whether it depends on exactly the
+// node before it (none for the first: the graph is then one chain, in the
+// order the capture recorded it), and one line of `names` per node: for a
+// kernel node the name of its function as a profiler trace shows it, demangled
+// (mangled where it does not demangle, "?" where the CUDA driver API gives
+// none); empty for any other node.
+// A node whose type or dependencies cannot be read gets -1 there, and its
+// line "!<the call>:<its error>"; the listing goes on.  `*n_out` and
+// `*used_out` get the nodes and the bytes of the lines; when more than
+// `n_max` nodes or `cap` bytes were needed nothing is complete and the call
+// returns cudaErrorInvalidValue: call again with that room.
+int loik_graph_nodes(void* graph, size_t n_max, int* types, int* chained, char* names,
+                     size_t cap, size_t* n_out, size_t* used_out) {
+  cudaGraph_t g = (cudaGraph_t)graph;
+  size_t n = 0;
+  LOIK_TRY(cudaGraphGetNodes(g, nullptr, &n));
+  *n_out = n;
+  cudaGraphNode_t* nodes = (cudaGraphNode_t*)std::malloc((n ? n : 1) * sizeof(cudaGraphNode_t));
+  if (!nodes) return cudaErrorMemoryAllocation;
+  cudaError_t e = cudaGraphGetNodes(g, nodes, &n);
+  size_t used = 0;
+  char note[64];
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    cudaError_t e_type = loik_node_type(nodes[i], &type);
+    size_t n_deps = 0;
+    cudaGraphNode_t dep = nullptr;
+    cudaError_t e_deps = LOIK_NODE_DEPS(nodes[i], nullptr, &n_deps);
+    if (e_deps == cudaSuccess && n_deps == 1) e_deps = LOIK_NODE_DEPS(nodes[i], &dep, &n_deps);
+    if (i < n_max) {
+      types[i] = e_type == cudaSuccess ? (int)type : -1;
+      chained[i] = e_deps != cudaSuccess ? -1
+                   : i == 0              ? n_deps == 0
+                                         : (n_deps == 1 && dep == nodes[i - 1]);
+    }
+    if (e_type != cudaSuccess || e_deps != cudaSuccess) {
+      (void)cudaGetLastError();
+      std::snprintf(note, sizeof(note), "!%s:%d", e_type != cudaSuccess ? "type" : "deps",
+                    (int)(e_type != cudaSuccess ? e_type : e_deps));
+      used = loik_put(names, cap, used, note);
+    } else if (type == cudaGraphNodeTypeKernel) {
+      const char* name = loik_kernel_name(nodes[i]);
+      if (!name) {
+        used = loik_put(names, cap, used, "?");
+      } else {
+        int status = 0;
+        char* plain = abi::__cxa_demangle(name, nullptr, nullptr, &status);
+        used = loik_put(names, cap, used, status == 0 && plain ? plain : name);
+        std::free(plain);
+      }
+    }
+    used = loik_put(names, cap, used, "\n");
+  }
+  std::free(nodes);
+  *used_out = used;
+  if (e != cudaSuccess) return e;
+  return n > n_max || used > cap ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 // See the top of the file; `nodes_out` gets the body graph's nodes.

@@ -376,22 +376,28 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
                 f"expected {want_dtype} on {dev}")
         return x.contiguous()
 
-    # the kernel updates these clones in place
-    out = {n: operand(n, getattr(st, n), _FIELD_DTYPES.get(n, dtype)).clone()
-           for n in _STATE_FIELDS}
-    inputs = [operand(n, getattr(prob, n), dtype) for n in _PROB_FIELDS]
-    inputs += [None if getattr(prob, n) is None else operand(n, getattr(prob, n), dtype)
-               for n in _OPTIONAL_FIELDS]
-    inputs += [operand("liMi_R", st.liMi_R, dtype), operand("liMi_p", st.liMi_p, dtype)]
-    if prob.S_all is not None:
-        if tuple(prob.S_all.shape) != (N, 6, tree.nv_max, B):
-            raise ValueError(
-                f"fused kernel operand S_all: shape {tuple(prob.S_all.shape)}, "
-                f"expected {(N, 6, tree.nv_max, B)}")
-        inputs += [None, operand("S_all", prob.S_all, dtype)]
-    else:
-        inputs += [operand("S", _subspace_operand(tree, dtype), dtype), None]
-    inputs += [operand("it", st.it, torch.int32)]
+    # the kernel updates these clones in place; a trace counts them with the
+    # state's reset and the operands' copies with the problem's preparation,
+    # so that the loop's phase is the launch alone (`utils.observability.phase`)
+    from ..utils.observability import phase
+
+    with phase("solver.reset"):
+        out = {n: operand(n, getattr(st, n), _FIELD_DTYPES.get(n, dtype)).clone()
+               for n in _STATE_FIELDS}
+    with phase("solver.prepare"):
+        inputs = [operand(n, getattr(prob, n), dtype) for n in _PROB_FIELDS]
+        inputs += [None if getattr(prob, n) is None else operand(n, getattr(prob, n), dtype)
+                   for n in _OPTIONAL_FIELDS]
+        inputs += [operand("liMi_R", st.liMi_R, dtype), operand("liMi_p", st.liMi_p, dtype)]
+        if prob.S_all is not None:
+            if tuple(prob.S_all.shape) != (N, 6, tree.nv_max, B):
+                raise ValueError(
+                    f"fused kernel operand S_all: shape {tuple(prob.S_all.shape)}, "
+                    f"expected {(N, 6, tree.nv_max, B)}")
+            inputs += [None, operand("S_all", prob.S_all, dtype)]
+        else:
+            inputs += [operand("S", _subspace_operand(tree, dtype), dtype), None]
+        inputs += [operand("it", st.it, torch.int32)]
     tensors = [out[n] for n in _STATE_FIELDS] + inputs
     ptrs = (ctypes.c_void_p * _N_PTRS)(
         *[None if t is None else t.data_ptr() for t in tensors])

@@ -32,6 +32,7 @@ import torch
 
 from ..params import SolverParams
 from ..problem import IkProblem, validate_problem
+from ..utils.observability import phase
 from . import batched_spatial as bsp
 from .solve import (_as_batch, _flat_nu, _reset_state, _solve_impl,
                     _solve_loop, full_f32_matmul, kkt_residual,
@@ -148,12 +149,11 @@ def solve_delta_duals(
     f32, f64 = torch.float32, torch.float64
 
     def body(tree, q, problem, warm_state):
-        return _delta_duals(
-            tree.astype(f32), tree.astype(f64), p1, p2, q,
-            _cast_problem(problem, f32), _cast_problem(problem, f64),
-            _cast_state(warm_state, f32) if warm_state is not None else None,
-            fused=fused, batch_tile=batch_tile,
-        )
+        with phase("solver.cast"):
+            args = (tree.astype(f32), tree.astype(f64), p1, p2, q,
+                    _cast_problem(problem, f32), _cast_problem(problem, f64),
+                    _cast_state(warm_state, f32) if warm_state is not None else None)
+        return _delta_duals(*args, fused=fused, batch_tile=batch_tile)
 
     from ..utils import graphs
 
@@ -174,10 +174,12 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
         loop = _solve_loop
 
     # ---- stage 1: plain f32 solve at the f32-floor tolerance -------------
-    res1 = _solve_impl(tree32, p1, q.to(f32), prob32, warm_state, loop=loop)
+    with phase("solver.cast"):
+        q32 = q.to(f32)
+    res1 = _solve_impl(tree32, p1, q32, prob32, warm_state, loop=loop)
     st1 = res1.state
 
-    with full_f32_matmul():
+    with full_f32_matmul(), phase("solver.kkt64"):
         # ---- one f64 KKT-residual evaluation at the stage-1 point --------
         st64 = _cast_state(st1, f64)
         pp64 = prepare_problem(tree64, prob64, B, f64)
@@ -230,41 +232,44 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
         zero = {n: torch.zeros_like(getattr(st1, n)) for n in
                 ("vis", "fis", "nu", "w", "yis", "Aty", "fdpa", "stfw")}
         st_d = dataclasses.replace(st1, z=st1.z - st1.nu, **zero)
-        st_d = _reset_state(tree32, p2, st_d, f32)
+        with phase("solver.reset"):
+            st_d = _reset_state(tree32, p2, st_d, f32)
 
-    st2 = loop(tree32, prob_d, p2, st_d)
+    with phase("solver.loop"):
+        st2 = loop(tree32, prob_d, p2, st_d)
 
     # ---- recombine in the original space --------------------------------
-    nu_hat = _flat_nu(tree32, st1.nu)
-    vis_hat = st1.vis.movedim(-1, 0)
-    # the returned state is FULL-space (x = x_hat + dx, duals y_hat + dy), so
-    # warm-starting the next solve from it is meaningful; st2.stfw is already
-    # full-space (the delta iteration adds r_offset = (S'f + w)|_hat), fdpa
-    # needs the stage-boundary f64 evaluation added back
-    st_full = dataclasses.replace(
-        st2,
-        vis=st2.vis + st1.vis,
-        fis=st2.fis + st1.fis,
-        nu=st2.nu + st1.nu,
-        z=st2.z + st1.nu,
-        w=st1.w + st2.w,
-        yis=st1.yis + st2.yis,
-        Aty=st1.Aty + st2.Aty,
-        fdpa=st2.fdpa + fdpa_hat.to(f32),
-    )
-    return SolveResult(
-        nu=_flat_nu(tree32, st2.nu) + nu_hat,
-        z=_flat_nu(tree32, st2.z) + nu_hat,
-        vis=st2.vis.movedim(-1, 0) + vis_hat,
-        converged=st2.converged,
-        primal_infeasible=st2.primal_infeasible,
-        dual_infeasible=st2.dual_infeasible,
-        iterations=res1.iterations + st2.iterations,
-        tail_iterations=st2.tail_iterations,
-        primal_residual=st2.primal_residual,
-        dual_residual=st2.dual_residual,
-        state=st_full,
-    )
+    with phase("solver.result"):
+        nu_hat = _flat_nu(tree32, st1.nu)
+        vis_hat = st1.vis.movedim(-1, 0)
+        # the returned state is FULL-space (x = x_hat + dx, duals y_hat + dy), so
+        # warm-starting the next solve from it is meaningful; st2.stfw is already
+        # full-space (the delta iteration adds r_offset = (S'f + w)|_hat), fdpa
+        # needs the stage-boundary f64 evaluation added back
+        st_full = dataclasses.replace(
+            st2,
+            vis=st2.vis + st1.vis,
+            fis=st2.fis + st1.fis,
+            nu=st2.nu + st1.nu,
+            z=st2.z + st1.nu,
+            w=st1.w + st2.w,
+            yis=st1.yis + st2.yis,
+            Aty=st1.Aty + st2.Aty,
+            fdpa=st2.fdpa + fdpa_hat.to(f32),
+        )
+        return SolveResult(
+            nu=_flat_nu(tree32, st2.nu) + nu_hat,
+            z=_flat_nu(tree32, st2.z) + nu_hat,
+            vis=st2.vis.movedim(-1, 0) + vis_hat,
+            converged=st2.converged,
+            primal_infeasible=st2.primal_infeasible,
+            dual_infeasible=st2.dual_infeasible,
+            iterations=res1.iterations + st2.iterations,
+            tail_iterations=st2.tail_iterations,
+            primal_residual=st2.primal_residual,
+            dual_residual=st2.dual_residual,
+            state=st_full,
+        )
 
 
 def solve_two_stage(
@@ -338,12 +343,11 @@ def solve_two_stage(
     fused_stage1 = bool(fused_stage1)
 
     def body(tree, q, problem, warm_state):
-        return _two_stage(
-            tree.astype(f32), tree.astype(f64), p1, p2, q,
-            _cast_problem(problem, f32), _cast_problem(problem, f64),
-            _cast_state(warm_state, f32) if warm_state is not None else None,
-            fused_stage1=fused_stage1, batch_tile=batch_tile,
-        )
+        with phase("solver.cast"):
+            args = (tree.astype(f32), tree.astype(f64), p1, p2, q,
+                    _cast_problem(problem, f32), _cast_problem(problem, f64),
+                    _cast_state(warm_state, f32) if warm_state is not None else None)
+        return _two_stage(*args, fused_stage1=fused_stage1, batch_tile=batch_tile)
 
     from ..utils import graphs
 
@@ -360,10 +364,14 @@ def _two_stage(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
         loop = fused_loop(batch_tile)
     else:
         loop = _solve_loop
-    res1 = _solve_impl(tree32, p1, q.to(torch.float32), prob32, warm_state, loop=loop)
-    res2 = _solve_impl(tree64, p2, q.to(torch.float64), prob64,
-                       _cast_state(res1.state, torch.float64))
-    return dataclasses.replace(res2, iterations=res1.iterations + res2.iterations)
+    with phase("solver.cast"):
+        q32 = q.to(torch.float32)
+    res1 = _solve_impl(tree32, p1, q32, prob32, warm_state, loop=loop)
+    with phase("solver.cast"):
+        q64, warm64 = q.to(torch.float64), _cast_state(res1.state, torch.float64)
+    res2 = _solve_impl(tree64, p2, q64, prob64, warm64)
+    with phase("solver.result"):
+        return dataclasses.replace(res2, iterations=res1.iterations + res2.iterations)
 
 
 def solve_delta_refined(
@@ -418,12 +426,13 @@ def _delta_refined(tree32, p1, p2, q, problem) -> SolveResult:
     """The body of `solve_delta_refined` (loik_tpu's two `_solve_jit_delta`
     calls and the arithmetic between them)."""
     f32 = torch.float32
-    q32 = q.to(f32)
-    prob32 = _cast_problem(problem, f32)
+    with phase("solver.cast"):
+        q32 = q.to(f32)
+        prob32 = _cast_problem(problem, f32)
     res1 = _solve_impl(tree32, p1, q32, prob32, None)
     st1 = res1.state
 
-    with full_f32_matmul():
+    with full_f32_matmul(), phase("solver.prepare"):
         # ---- the shifted (delta) problem, batch-leading ------------------
         v_hat = st1.vis.movedim(-1, 0)                   # (B,N,6)
         nu_hat = res1.nu                                 # (B,nv)
@@ -459,10 +468,11 @@ def _delta_refined(tree32, p1, p2, q, problem) -> SolveResult:
     res2 = _solve_impl(tree32, p2, q32, prob_d, warm, tol_scales=(scale_p, scale_d))
 
     # ---- recombine in the original space --------------------------------
-    return dataclasses.replace(
-        res2,
-        nu=res2.nu + nu_hat,
-        z=res2.z + nu_hat,
-        vis=res2.vis + v_hat,
-        iterations=res1.iterations + res2.iterations,
-    )
+    with phase("solver.result"):
+        return dataclasses.replace(
+            res2,
+            nu=res2.nu + nu_hat,
+            z=res2.z + nu_hat,
+            vis=res2.vis + v_hat,
+            iterations=res1.iterations + res2.iterations,
+        )

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..params import SolverParams
 from ..problem import IkProblem, validate_problem
+from ..utils.observability import phase
 from . import batched_spatial as bsp
 from .state import (LOG_FIELDS, PreparedProblem, SolverState, SolveResult,
                     init_state, nan_logs)
@@ -711,40 +712,49 @@ def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
 
     tol_scales: ``(primal, dual)`` (B,) floors of the adaptive-tolerance
     scales, the ORIGINAL problem's, for a solve of a delta problem
-    (`refine.solve_delta_refined`)."""
+    (`refine.solve_delta_refined`).
+
+    Its phases (`utils.observability.phase`): ``solver.fk``,
+    ``solver.prepare``, ``solver.reset``, ``solver.loop``,
+    ``solver.result``."""
     with full_f32_matmul():
         if liMi is None:
             dtype, B, dev = q.dtype, q.shape[0], q.device
-            liMi_R, liMi_p = fwd_pass_init(tree, q)
+            with phase("solver.fk"):
+                liMi_R, liMi_p = fwd_pass_init(tree, q)
         else:
             liMi_R, liMi_p = liMi
             dtype, B, dev = liMi_R.dtype, liMi_R.shape[-1], liMi_R.device
-        prob = prepare_problem(tree, problem, B, dtype)
-        if tree.has_q_dependent_S:
-            if q is None:
-                raise ValueError(
-                    "trees with configuration-dependent motion subspaces "
-                    "(universal joints) need q: the SolveInit/Solve FK-frozen "
-                    "split cannot reconstruct S from liMi — use solve()"
-                )
-            prob = dataclasses.replace(
-                prob, S_list=q_dependent_S_list(tree, q, dtype))
-        if tol_scales is not None:
-            prob = dataclasses.replace(
-                prob,
-                tol_scale_primal=torch.as_tensor(tol_scales[0], dtype=dtype, device=dev),
-                tol_scale_dual=torch.as_tensor(tol_scales[1], dtype=dtype, device=dev))
-        if warm_state is None:
-            st = init_state(tree, B, problem.num_constraints, dtype, dev,
-                            params.max_iter, params.logging)
-        else:
-            st = warm_state
-        st = _reset_state(tree, params, st, dtype)
-        st = dataclasses.replace(st, liMi_R=liMi_R, liMi_p=liMi_p)
-        st = loop(tree, prob, params, st)
+        with phase("solver.prepare"):
+            prob = prepare_problem(tree, problem, B, dtype)
+            if tree.has_q_dependent_S:
+                if q is None:
+                    raise ValueError(
+                        "trees with configuration-dependent motion subspaces "
+                        "(universal joints) need q: the SolveInit/Solve FK-frozen "
+                        "split cannot reconstruct S from liMi — use solve()"
+                    )
+                prob = dataclasses.replace(
+                    prob, S_list=q_dependent_S_list(tree, q, dtype))
+            if tol_scales is not None:
+                prob = dataclasses.replace(
+                    prob,
+                    tol_scale_primal=torch.as_tensor(tol_scales[0], dtype=dtype, device=dev),
+                    tol_scale_dual=torch.as_tensor(tol_scales[1], dtype=dtype, device=dev))
+            if warm_state is None:
+                st = init_state(tree, B, problem.num_constraints, dtype, dev,
+                                params.max_iter, params.logging)
+            else:
+                st = warm_state
+        with phase("solver.reset"):
+            st = _reset_state(tree, params, st, dtype)
+            st = dataclasses.replace(st, liMi_R=liMi_R, liMi_p=liMi_p)
+        with phase("solver.loop"):
+            st = loop(tree, prob, params, st)
     if params.verbose:
         _announce(st)
-    return _result(tree, st)
+    with phase("solver.result"):
+        return _result(tree, st)
 
 
 def solve_from_fk(tree, params: SolverParams, liMi_R, liMi_p,

@@ -100,6 +100,7 @@ import functools
 import inspect
 import threading
 import time
+import warnings
 import weakref
 from typing import Callable, List
 
@@ -108,6 +109,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from ..model.tree import KinematicTree, refresh_derived
+from .observability import profiling, span
 
 # process-wide, like jax.disable_jit: a sharded solve's host threads see it
 _DISABLED = False
@@ -134,6 +136,9 @@ _FAILED: list = []
 _SIDE: dict = {}
 # set on a thread inside `inline()`
 _INSIDE = threading.local()
+# per tag: [replays, bytes copied in, bytes cloned out] (`copy_stats`)
+_COPIES: dict = {}
+_COPIES_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +153,16 @@ class Capture:
     from the capture's start (a device synchronisation and emptying the
     allocator's cache) to its end (`cudaStreamEndCapture`);
     ``instantiate_seconds``, `cudaGraphInstantiate` (the capture keeps its
-    graph, ``CUDAGraph(keep_graph=True)``, and instantiates it apart)."""
+    graph, ``CUDAGraph(keep_graph=True)``, and instantiates it apart).
+
+    What a trace of a replay is attributed by (`observability.
+    phase_device_us`): ``phases``, the solver phases the body recorded
+    (`observability.phase`), each (name, first node, end node) over the
+    graph's top-level nodes in the order the capture recorded them,
+    contiguous from 0 to the last node (a stretch outside every phase is
+    named None); ``graph``, a function that returns the kept graph (a
+    `torch.cuda.CUDAGraph`) while it lives and None after, whose nodes
+    `node_kinds` lists on first ask (None: the CPU tests' stand-in)."""
 
     tag: str
     seconds: float
@@ -160,16 +174,27 @@ class Capture:
     warm_seconds: float = 0.0
     record_seconds: float = 0.0
     instantiate_seconds: float = 0.0
+    phases: tuple = ()
+    graph: Callable = None
+    # `node_kinds`' answer, once asked
+    listing: list = dataclasses.field(default_factory=list, compare=False, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class Loop:
     """One WHILE node of a capture: its body graph's nodes and, per carry
     tensor in order, the bytes its body copies back every trip (0 for one
-    the body wrote in place or left as it was)."""
+    the body wrote in place or left as it was); ``body``, the body graph (a
+    cudaGraph_t, which the WHILE node owns; None on the CPU)."""
 
     body_nodes: int
     copies: tuple
+    body: int = None
+
+
+# `node_kinds`' node types (cudaGraphNodeType) that a trace shows as a
+# device operation, and the WHILE node's
+NODE_KERNEL, NODE_MEMCPY, NODE_MEMSET, NODE_CONDITIONAL = 0, 1, 2, 13
 
 
 # every capture of this process, in order (`no_recompile_guard` counts them)
@@ -218,6 +243,43 @@ def cached_graphs() -> int:
     with _LOCK:
         _drain()
         return len(_CACHE) + sum(len(graphs) for _, graphs in _FNS.values())
+
+
+_STATS = ("calls", "replays", "bytes_in", "bytes_out", "timed", "key_ns", "copy_in_ns",
+          "replay_ns", "clone_out_ns")
+
+
+def copy_stats() -> dict:
+    """Per entry point's tag (a `jit` function's qualified name), since the
+    process started: the calls that replayed a graph and their replays (a
+    `scan` call replays its tick ``length`` times); the bytes they copied
+    into the graphs' static buffers (a held tree's leaves are not copied
+    again) and cloned out of them; and, of the ``timed`` calls among them,
+    those made while no profiler ran, the host clock's nanoseconds of each
+    step of the graph layer: ``key_ns`` (the inputs flattened, the key
+    built and looked up), ``copy_in_ns``, ``replay_ns`` (the launches) and
+    ``clone_out_ns``, as ``{tag: {"calls", "replays", "bytes_in",
+    "bytes_out", "timed", "key_ns", "copy_in_ns", "replay_ns",
+    "clone_out_ns"}}``.  Plain integer adds, always on."""
+    with _COPIES_LOCK:
+        return {tag: dict(zip(_STATS, v)) for tag, v in _COPIES.items()}
+
+
+def _count_copies(tag, replays, bytes_in, bytes_out, clock) -> None:
+    """Counts one call that replayed ``tag``'s graph; ``clock``: the host
+    clock (`time.perf_counter_ns`) at the call's start (None: not timed),
+    after its key, copy-in, replay and clone-out."""
+    timed = clock[0] is not None and not profiling()
+    with _COPIES_LOCK:
+        v = _COPIES.setdefault(tag, [0] * len(_STATS))
+        v[0] += 1
+        v[1] += replays
+        v[2] += bytes_in
+        v[3] += bytes_out
+        if timed:
+            v[4] += 1
+            for i in range(4):
+                v[5 + i] += clock[i + 1] - clock[i]
 
 
 def _drain() -> None:
@@ -342,16 +404,19 @@ class _Trees:
     tree derived from them (`model.tree.refresh_derived`), so the replay
     reads that tree's geometry.  A failed copy or recomputation raises."""
 
-    def __init__(self, tag, given, made):
+    def __init__(self, tag, given, made, static):
         self.tag, self.made = tag, made
         self.held = [weakref.ref(t) for _, _, t in given]
+        self.bytes = [_bytes(static[start:stop]) for start, stop, _ in given]
 
-    def copy_in(self, static, leaves, given) -> None:
-        """``leaves`` (of a call whose trees are ``given``) into ``static``."""
-        skip, new = set(), []
+    def copy_in(self, static, leaves, given) -> int:
+        """``leaves`` (of a call whose trees are ``given``) into ``static``;
+        returns the bytes of the held trees' leaves, which it skipped."""
+        skip, new, held = set(), [], 0
         for i, (start, stop, t) in enumerate(given):
             if self.held[i]() is t:
                 skip.update(range(start, stop))
+                held += self.bytes[i]
             else:
                 self.held[i] = _dead     # until its leaves and derived values are in
                 new.append(i)
@@ -364,6 +429,7 @@ class _Trees:
                     f"{self.tag}: recomputing the graph's casts and S operand from a new "
                     f"tree's leaves failed ({type(e).__name__}: {e})") from e
             self.held[i] = weakref.ref(given[i][2])
+        return held
 
 
 def _numbers(tag, leaves, device) -> list:
@@ -458,7 +524,7 @@ def _capture_cuda(device, fn, generators=()):
     it (torch registers the default one itself).  Returns (replay, the
     captured call's outputs, the fused kernel launches it recorded, the
     bytes its private pool reserved, its nodes, the seconds its
-    instantiation took)."""
+    instantiation took, `Capture.graph`)."""
     from ..kernels import fused
 
     side = _side_stream(device)
@@ -503,7 +569,7 @@ def _capture_cuda(device, fn, generators=()):
         weakref.finalize(graph, torch._C._cuda_releasePool, *body_pool)
     launches = fused.captured_launches() - n0
     return (graph.replay, out, launches, torch.cuda.memory_reserved(device) - reserved,
-            nodes, instantiate)
+            nodes, instantiate, weakref.ref(graph))
 
 
 # the capture backend (the CPU tests put a stand-in here)
@@ -515,19 +581,19 @@ def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
     kernel library, fills the graph tree's casts and S operand, sets the kernel's
     shared-memory limit, and its launches count; it raises what the eager
     call raises), then ``fn``, the same call, captured, with this thread
-    marked as inside a body, a failed capture raised under the entry
-    point's name and the capture logged; the graph lives until ``owner``,
-    the call that replays it, is gone (`_GRAPHS`).  Returns (the warm-up's
-    outputs, replay, the captured call's outputs, launches a replay
-    makes)."""
+    marked as inside a body and its phases recorded (`_phases`), a failed
+    capture raised under the entry point's name and the capture logged;
+    the graph lives until ``owner``, the call that replays it, is gone
+    (`_GRAPHS`).  Returns (the warm-up's outputs, replay, the captured
+    call's outputs, launches a replay makes)."""
     t0 = time.perf_counter()
     with inline():
         warm = _warm_up(device, warm_fn)
         _prepare(device)              # load what a WHILE node launches
         t1 = time.perf_counter()
-        _INSIDE.capturing, _INSIDE.loops = True, []
+        _INSIDE.capturing, _INSIDE.loops, _INSIDE.marks = True, [], []
         try:
-            replay, out, launches, pool, nodes, inst = _capture(device, fn, generators)
+            replay, out, launches, pool, nodes, inst, graph = _capture(device, fn, generators)
         except Exception as e:
             raise RuntimeError(
                 f"{tag}: capturing the CUDA graph failed ({type(e).__name__}: {e}); a "
@@ -540,10 +606,11 @@ def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
         finally:
             _INSIDE.capturing = False
             loops, _INSIDE.loops = tuple(_INSIDE.loops), []
+            marks, _INSIDE.marks = _INSIDE.marks, None
     warm_s, record_s = t1 - t0, time.perf_counter() - t1 - inst
     CAPTURES.append(Capture(tag, warm_s + record_s + inst, pool, static_bytes, launches,
                             nodes + sum(lp.body_nodes for lp in loops), loops,
-                            warm_s, record_s, inst))
+                            warm_s, record_s, inst, _phases(marks, nodes), graph))
     key = id(replay)
     _GRAPHS[key] = (replay, weakref.ref(owner, lambda _, key=key, gone=_GONE: gone.append(key)))
     return warm, replay, out, launches
@@ -669,8 +736,8 @@ def while_loop(cond: Callable, body: Callable, carry):
                 dst.copy_(src)
         return cond(carry).reshape(())
 
-    body_nodes = _while_node(dev, cond(carry).reshape(()), step, _trips(dev))
-    _INSIDE.loops.append(Loop(body_nodes, tuple(copies)))
+    body_nodes, body_graph = _while_node(dev, cond(carry).reshape(()), step, _trips(dev))
+    _INSIDE.loops.append(Loop(body_nodes, tuple(copies), body_graph))
     return carry
 
 
@@ -687,8 +754,14 @@ def _while_library():
                                    ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
     lib.loik_while_abort.argtypes = [ctypes.c_void_p]
     lib.loik_capture_nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.loik_capture_graph.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+    lib.loik_graph_nodes.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t)]
     for name in ("loik_while_prepare", "loik_while_begin", "loik_while_end",
-                 "loik_while_abort", "loik_capture_nodes"):
+                 "loik_while_abort", "loik_capture_nodes", "loik_capture_graph",
+                 "loik_graph_nodes"):
         getattr(lib, name).restype = ctypes.c_int
     lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
     lib.loik_cuda_error_string.restype = ctypes.c_char_p
@@ -732,6 +805,85 @@ def _capture_nodes(stream) -> int:
     return n.value
 
 
+def _capture_stream():
+    """The stream this thread captures on now (None off the card)."""
+    return torch.cuda.current_stream() if torch.cuda.is_initialized() else None
+
+
+def _phases(marks, nodes) -> tuple:
+    """(name, first node, end node) of each stretch of a capture's
+    top-level nodes: ``marks`` holds (node count, the phase from there on)
+    as `observability.phase` recorded them at its entries and exits, in
+    order; the stretch before the first mark and any stretch outside every
+    phase are named None; ``nodes``: the nodes at the capture's end.  The
+    stretches are contiguous and cover every node; an empty one is left
+    out, and neighbours of one name are one."""
+    out: list = []
+    bounds = [(0, None)] + list(marks)
+    ends = [n for n, _ in bounds[1:]] + [max(nodes, bounds[-1][0])]
+    for (first, name), end in zip(bounds, ends):
+        if end <= first:
+            continue
+        if out and out[-1][0] == name and out[-1][2] == first:
+            out[-1] = (name, out[-1][1], end)
+        else:
+            out.append((name, first, end))
+    return tuple(out)
+
+
+def _list_nodes_cuda(graph) -> tuple:
+    """(kinds, linear) of the nodes of ``graph`` (a cudaGraph_t): per node
+    in the order the capture recorded them, its `cudaGraphNodeType` and,
+    for a kernel node, its function's name as a trace shows it (demangled;
+    "" for another node); and whether the nodes form one chain in that
+    order, as a capture on one stream records them (a replay then runs
+    them in it)."""
+    lib = _while_library()
+    n_max, cap = 4096, 1 << 20
+    while True:
+        types, chained = (ctypes.c_int * n_max)(), (ctypes.c_int * n_max)()
+        names = ctypes.create_string_buffer(cap)
+        n, used = ctypes.c_size_t(), ctypes.c_size_t()
+        err = lib.loik_graph_nodes(ctypes.c_void_p(graph), n_max, types, chained, names,
+                                   cap, ctypes.byref(n), ctypes.byref(used))
+        if err and (n.value > n_max or used.value > cap):
+            n_max, cap = max(n_max, n.value), max(cap, used.value)
+            continue
+        if err:
+            raise RuntimeError(f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
+        break
+    lines = names.raw[:used.value].decode(errors="replace").split("\n")
+    kinds = tuple((types[i], lines[i]) for i in range(n.value))
+    return kinds, all(chained[i] == 1 for i in range(n.value))
+
+
+# the node listing backend (the CPU tests put a stand-in here)
+_list_nodes = _list_nodes_cuda
+
+
+def node_kinds(cap: Capture):
+    """((kinds, linear) of ``cap``'s graph, the same of each WHILE node's
+    body in `Capture.loops`' order), as `_list_nodes_cuda` gives them, read
+    from the kept graph on the first ask and kept; None while the graph is
+    gone or has no listing.  A graph whose nodes cannot be listed warns
+    once: a trace of its replays is not split by phase."""
+    if cap.listing:
+        return cap.listing[0]
+    graph = cap.graph() if cap.graph is not None else None
+    if graph is None:
+        return None
+    try:
+        # ``graph`` held here keeps its WHILE nodes' bodies alive
+        listing = (_list_nodes(graph.raw_cuda_graph()),
+                   tuple(_list_nodes(lp.body) for lp in cap.loops))
+    except RuntimeError as e:
+        warnings.warn(f"{cap.tag}: the captured graph's nodes could not be listed ({e}); "
+                      "a trace of its replays is not split by phase")
+        listing = None
+    cap.listing.append(listing)
+    return listing
+
+
 def _end_routing(failed=False):
     """After a capture: end the routing of this thread's allocations to the
     pool of its WHILE bodies, if one began; returns that pool's (device,
@@ -747,14 +899,14 @@ def _end_routing(failed=False):
     return idx, pool
 
 
-def _while_node_cuda(device, pred: torch.Tensor, step: Callable, trips: torch.Tensor) -> int:
+def _while_node_cuda(device, pred: torch.Tensor, step: Callable, trips: torch.Tensor):
     """A WHILE node on the capture's current stream whose condition is
     ``pred`` (a 0-d bool tensor) and whose body is the capture of
     ``step()``, which returns the next condition, on the device's body
     stream (a WHILE body holds no WHILE node); the kernel that ends the body
     adds one to ``trips`` (an int64 on the device).  The body's allocations
     come from a private pool of their own that lives as long as the graph.
-    Returns the body graph's nodes."""
+    Returns the body graph's nodes and the body graph (`Loop.body`)."""
     lib = _while_library()
     idx, pool = _INSIDE.body_pool
     if pool is None:
@@ -779,11 +931,15 @@ def _while_node_cuda(device, pred: torch.Tensor, step: Callable, trips: torch.Te
     except BaseException:
         lib.loik_while_abort(body.cuda_stream)
         raise
+    graph = ctypes.c_void_p()
+    _check(lib, lib.loik_capture_graph(body.cuda_stream, ctypes.byref(graph)),
+           "finding the WHILE node's body graph")
     nodes = ctypes.c_ulonglong()
     _check(lib, lib.loik_while_end(body.cuda_stream, handle, nxt.data_ptr(),
                                    trips.data_ptr(), ctypes.byref(nodes)),
            "capturing the WHILE node's body")
-    return nodes.value
+    # the body graph lives on in the node
+    return nodes.value, graph.value
 
 
 # cudaStreamCaptureModeThreadLocal, the mode of every capture here
@@ -857,7 +1013,11 @@ class _Call:
         # to be differentiated leaves the buffers as they are
         made: list = []
         args = _unflatten(spec, iter([t.detach() for t in self.static]), made)
-        self.trees = _Trees(tag, trees, made)
+        self.trees = _Trees(tag, trees, made, self.static)
+        # the bytes a call copies in when it holds no tree of the graph's
+        positions = {i for pos, _ in numbers for i in pos}
+        self.in_bytes = _bytes(t for i, t in enumerate(self.static) if i not in positions)
+        self.in_bytes += _bytes(self.numbers)
         dev = leaves[0].device
         self.rng = None if generator is None else torch.Generator(device=dev)
         given, own = ((), ()) if generator is None else ((generator,), (self.rng,))
@@ -870,29 +1030,43 @@ class _Call:
         # record goes, its buffers stay in the graph's pool
         memo: dict = {}
         self.out = [memo.setdefault(id(t), t.detach()) for t in self.out]
+        self.out_bytes = _bytes(memo.values())
         warm_leaves: list = []
         _flatten(warm, warm_leaves)
         self.first = _unflatten(self.out_spec, iter(_fresh(warm_leaves)))
 
-    def __call__(self, leaves, trees=(), generator=None, numbers=()):
+    def __call__(self, leaves, trees=(), generator=None, numbers=(), start=None):
+        """A replay of the graph on ``leaves``; ``start``: the host clock
+        (`time.perf_counter_ns`) when the call's key began (`copy_stats`;
+        None: the call is not timed)."""
         from ..kernels import fused
 
+        tag = self.tag
+        clock = [start, time.perf_counter_ns()]
         with self.lock:
-            self.trees.copy_in(self.static, leaves, trees)
-            for buf, (_, host) in zip(self.numbers, numbers):
-                try:
-                    buf.copy_(host, non_blocking=True)
-                except RuntimeError as e:
-                    raise _copy_failed(self.tag, buf.device, e) from e
-            if self.rng is not None:
-                # the replay draws from the graph's generator at the
-                # caller's seed and offset, and hands the advanced offset back
-                self.rng.set_state(generator.get_state())
-            self.replay()
-            if self.rng is not None:
-                generator.set_state(self.rng.get_state())
-            fused.count_launches(self.launches)
-            return _unflatten(self.out_spec, iter(_fresh(self.out)))
+            with span("graphs.copy_in", tag):
+                held = self.trees.copy_in(self.static, leaves, trees)
+                for buf, (_, host) in zip(self.numbers, numbers):
+                    try:
+                        buf.copy_(host, non_blocking=True)
+                    except RuntimeError as e:
+                        raise _copy_failed(tag, buf.device, e) from e
+                if self.rng is not None:
+                    # the replay draws from the graph's generator at the
+                    # caller's seed and offset, and hands the advanced offset back
+                    self.rng.set_state(generator.get_state())
+            clock.append(time.perf_counter_ns())
+            with span("graphs.replay", tag):
+                self.replay()
+            clock.append(time.perf_counter_ns())
+            with span("graphs.clone_out", tag):
+                if self.rng is not None:
+                    generator.set_state(self.rng.get_state())
+                fused.count_launches(self.launches)
+                out = _unflatten(self.out_spec, iter(_fresh(self.out)))
+            clock.append(time.perf_counter_ns())
+            _count_copies(tag, 1, self.in_bytes - held, self.out_bytes, clock)
+            return out
 
 
 def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
@@ -918,19 +1092,22 @@ def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
     draws the same numbers, the graph holds no reference to it, and
     another generator object is no new key (as a new PRNG key is no new
     compile in JAX)."""
-    leaves: list = []
-    trees: list = []
-    spec = _flatten((tree,) + tuple(args), leaves, trees=trees)
-    given = () if generator is None else (generator,)
-    if not (capture and _graphable(leaves)):
-        return body(tree, *args, *given)
-
     def build():
         g = _Call(tag, body, spec, leaves, trees, generator)
         return g, g.first
 
-    g, result = _graph((tag, statics, spec, bool(given)), build)
-    return g(leaves, trees, generator) if result is _NONE else result
+    start = time.perf_counter_ns()
+    with span("graphs.key", tag):
+        leaves: list = []
+        trees: list = []
+        spec = _flatten((tree,) + tuple(args), leaves, trees=trees)
+        given = () if generator is None else (generator,)
+        graphed = capture and _graphable(leaves)
+        if graphed:
+            g, result = _graph((tag, statics, spec, bool(given)), build)
+    if not graphed:
+        return body(tree, *args, *given)
+    return g(leaves, trees, generator, start=start) if result is _NONE else result
 
 
 class ConcretizationTypeError(TypeError):
@@ -1090,29 +1267,32 @@ def jit(fn: Callable, static_argnums=(), static_argnames=()) -> Callable:
 
     @functools.wraps(fn)
     def jitted(*args, **kwargs):
-        leaves: list = []
-        labels: dict = {}
-        trees: list = []
-        spec = split(args, kwargs, leaves, labels, trees)
-        tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
-        device = tensors[0].device if tensors else torch.device("cpu")
-        numbers = _numbers(tag, leaves, device)
-        grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-        if grad or not _graphable(tensors):
+        def build():
+            g = _Call(tag, functools.partial(body, labels), spec,
+                      _on_device(tag, leaves, device, numbers), trees, numbers=numbers)
+            return g, g.first
+
+        start = time.perf_counter_ns()
+        with span("graphs.key", tag):
+            leaves: list = []
+            labels: dict = {}
+            trees: list = []
+            spec = split(args, kwargs, leaves, labels, trees)
+            tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+            device = tensors[0].device if tensors else torch.device("cpu")
+            numbers = _numbers(tag, leaves, device)
+            grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+            graphed = not grad and _graphable(tensors)
+            if graphed:
+                g, result = _graph(spec, build, fn)
+        if not graphed:
             eager = _on_device(tag, leaves, device, numbers)
             if not grad:
                 eager = [t.detach() for t in eager]
             pos, kw = _unflatten(spec, iter(eager))
             out = fn(*pos, **dict(kw))
             return out if grad else _map(torch.Tensor.detach, out)
-
-        def build():
-            g = _Call(tag, functools.partial(body, labels), spec,
-                      _on_device(tag, leaves, device, numbers), trees, numbers=numbers)
-            return g, g.first
-
-        g, result = _graph(spec, build, fn)
-        return g(leaves, trees, numbers=numbers) if result is _NONE else result
+        return g(leaves, trees, numbers=numbers, start=start) if result is _NONE else result
 
     return jitted
 
@@ -1133,11 +1313,11 @@ class _Scan:
 
     def __init__(self, tag, tick, spec, leaves, trees, length):
         self.lock = threading.Lock()
-        self.length = length
+        self.tag, self.length = tag, length
         self.static = _static(leaves)
         made: list = []
         tree, carry, xs, consts = _unflatten(spec, iter(self.static), made)
-        self.trees = _Trees(tag, trees, made)
+        self.trees = _Trees(tag, trees, made, self.static)
         carry_leaves: list = []
         carry_spec = _flatten(carry, carry_leaves)
         self.carry_spec, self.carry = carry_spec, carry_leaves
@@ -1173,18 +1353,30 @@ class _Scan:
 
         _, self.replay, _, self.launches = _captured(tag, dev, step, step,
                                                      _bytes(self.static), self)
+        self.out_bytes = _bytes({id(t): t for t in self.carry + self.ys}.values())
 
-    def __call__(self, leaves, trees):
+    def __call__(self, leaves, trees, start=None):
+        """The ticks replayed on ``leaves``; ``start`` as `_Call`'s."""
         from ..kernels import fused
 
+        tag = self.tag
+        clock = [start, time.perf_counter_ns()]
         with self.lock:
-            self.trees.copy_in(self.static, leaves, trees)
-            self.t.zero_()
-            for _ in range(self.length):
-                self.replay()
-            fused.count_launches(self.launches * self.length)
-            return (_unflatten(self.carry_spec, iter(_fresh(self.carry))),
-                    _unflatten(self.y_spec, iter(_fresh(self.ys))))
+            with span("graphs.copy_in", tag):
+                held = self.trees.copy_in(self.static, leaves, trees)
+                self.t.zero_()
+            clock.append(time.perf_counter_ns())
+            with span("graphs.replay", tag):
+                for _ in range(self.length):
+                    self.replay()
+            clock.append(time.perf_counter_ns())
+            with span("graphs.clone_out", tag):
+                fused.count_launches(self.launches * self.length)
+                out = (_unflatten(self.carry_spec, iter(_fresh(self.carry))),
+                       _unflatten(self.y_spec, iter(_fresh(self.ys))))
+            clock.append(time.perf_counter_ns())
+            _count_copies(tag, self.length, _bytes(self.static) - held, self.out_bytes, clock)
+            return out
 
 
 def scan(tag: str, tree, statics: tuple, tick: Callable, carry, xs, consts,
@@ -1197,15 +1389,23 @@ def scan(tag: str, tree, statics: tuple, tick: Callable, carry, xs, consts,
     and the tensors lie on the card (and graphs are on), else a loop of
     eager ticks.  The tree is an input, keyed by its topology, as in
     `run`."""
-    leaves: list = []
-    trees: list = []
-    spec = _flatten((tree, carry, xs, consts), leaves, trees=trees)
-    if not (capture and _graphable(leaves)):
+    def build():
+        nonlocal start
+        start = None            # a capture's call is not timed (`copy_stats`)
+        return _Scan(tag, tick, spec, leaves, trees, length), _NONE
+
+    start = time.perf_counter_ns()
+    with span("graphs.key", tag):
+        leaves: list = []
+        trees: list = []
+        spec = _flatten((tree, carry, xs, consts), leaves, trees=trees)
+        graphed = capture and _graphable(leaves)
+        if graphed:
+            g, _ = _graph((tag, statics, length, spec), build)
+    if not graphed:
         ys = []
         for t in range(length):
             carry, y = tick(tree, carry, _map(lambda x: x[t], xs), consts)
             ys.append(y)
         return carry, _stack(ys)
-    g, _ = _graph((tag, statics, length, spec),
-                  lambda: (_Scan(tag, tick, spec, leaves, trees, length), _NONE))
-    return g(leaves, trees)
+    return g(leaves, trees, start)

@@ -1,38 +1,148 @@
-"""Observability: profiling traces, a steady-state allocation guard, NaN
-checks, the logged mirror of a production solve, and timing.
+"""Observability: profiling traces, spans and phase labels, a steady-state
+allocation guard, NaN checks, the logged mirror of a production solve, and
+timing.
 
 Port of `loik_tpu.utils.observability`, whose rigor mechanisms stand in for
 the reference's:
 
 - `PinocchioTicToc` timing (tests/loik-loid.cpp:1004) -> `trace()`, a
   `torch.profiler` context writing a Chrome trace (chrome://tracing,
-  Perfetto), and `Timer`.
+  Perfetto); `Timer`, wall-clock samples of a block; and the spans and
+  phase labels below, on the profiler's clock, which name the program's
+  steps in such a trace and tell the device time of a replayed graph by
+  solver phase (`phase_device_us`).
 - `CHECK_RUNTIME_MALLOC` / `LOIK_EIGEN_MALLOC_NOT_ALLOWED` (macros.hpp:7-15;
   CMakeLists.txt:93-97) -> `no_recompile_guard()`.  What a steady-state
   loop must not do is capture a CUDA graph (the port's counterpart of a jit
   compile, `utils.graphs`), build the kernel library again or make the
   CUDA caching allocator reserve new device memory.
 - `INITIALIZE_WITH_NAN` (CMakeLists.txt:88-91) -> `debug_nans()`.
+
+Spans (`span`): host ranges, `torch.profiler.record_function` while a
+profiler runs and nothing otherwise (one flag read).  Where they sit:
+
+- ``api.<method>``: each `DiffIkSolver` entry point (`solve`,
+  `solve_refined`, `solve_init`, `resolve`, `solve_tracking`,
+  `track_scan`, `reach`), the request span: every other span of a call
+  nests in it.
+- ``graphs.key:<tag>``: `utils.graphs.run` / `scan` / `jit`: the inputs
+  flattened, the key built and looked up.
+- ``graphs.copy_in:<tag>``: the copies into the graph's static buffers, a
+  new tree's derived values, the traced numbers, the generator's state.
+- ``graphs.replay:<tag>``: the graph's launch.
+- ``graphs.clone_out:<tag>``: the fresh results cloned out, the
+  generator's state handed back.
+
+``<tag>`` is the entry point's (`run`'s ``tag``; a `jit` function's
+qualified name).  Phases (`phase`): inside a capture they run nothing and
+record which of the graph's nodes each phase recorded
+(`graphs.Capture.phases`); elsewhere each is the span of its name.
+
+- ``solver.cast``: the tree, problem and state casts of the refine bodies
+  (`refine.solve_delta_duals`, `solve_two_stage`, `_delta_refined`).
+- ``solver.update``: the tracking tick's constraint update
+  (`api.DiffIkSolver.solve_tracking`).
+- ``solver.fk``: forward kinematics (`solve._solve_impl`).
+- ``solver.prepare``: `prepare_problem`, the configuration-dependent S,
+  the tolerance floors and a cold state (`_solve_impl`); the delta problem
+  and warm start of `refine._delta_refined`; the kernel's operands made
+  contiguous (`kernels.fused._launch`).
+- ``solver.reset``: `_reset_state` (`_solve_impl`, the delta state's in
+  `refine._delta_duals`), and the kernel's working copy of the state
+  (`kernels.fused._launch`).
+- ``solver.loop``: the fused kernel's launch or the WHILE node, each stage
+  (`_solve_impl`, `refine._delta_duals`).
+- ``solver.kkt64``: `refine._delta_duals`' float64 KKT evaluation, scales,
+  delta problem and delta state.
+- ``solver.result``: `solve._result` and the refine bodies'
+  recombination.
+
+Counters: `utils.graphs.copy_stats()` (per tag: calls and replays, bytes
+copied in and cloned out, and the host clock's time of the key, copy-in,
+replay and clone-out steps of the calls made while no profiler ran);
+`utils.graphs.CAPTURES` (a capture's seconds, nodes and phases),
+`kernels.fused.LAUNCHES`, `kernels._build.BUILDS` and
+`graphs.body_executions()`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-from ..kernels import _build
-from ..kernels import fused as _fused
-from ..solver.state import LOG_FIELDS
-from . import graphs as _graphs
+# the package's modules are imported where they are used: the graphs and the
+# solver import this module for `span` and `phase`
+
+# what `span` returns while no profiler runs
+_NULL = contextlib.nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a torch profiler runs (one flag read)."""
+    return _profiler._is_profiler_enabled
+
+
+def span(name: str, tag: Optional[str] = None):
+    """A host span named ``name`` (``name:tag`` with a ``tag``):
+    `torch.profiler.record_function` while a profiler runs, so the range
+    lies in its trace on the clock of the device's events; otherwise a
+    shared context that does nothing (one flag read)."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(name if tag is None else f"{name}:{tag}")
+
+
+class _Phase:
+    """`phase` inside a capture: the graph's node count at entry and exit
+    into the capture's marks (`utils.graphs._phases`)."""
+
+    __slots__ = ("name", "marks", "outer")
+
+    def __init__(self, name, marks):
+        self.name, self.marks = name, marks
+
+    def __enter__(self):
+        self.outer = self.marks[-1][1] if self.marks else None
+        self.marks.append((_capture_nodes(), self.name))
+
+    def __exit__(self, *exc):
+        self.marks.append((_capture_nodes(), self.outer))
+
+
+def _capture_nodes() -> int:
+    from . import graphs
+
+    return graphs._capture_nodes(graphs._capture_stream())
+
+
+def phase(name: str):
+    """A phase of a solve (the module docstring lists them).  On the thread
+    that captures an entry point's graph: the graph's nodes recorded inside
+    it are the phase's (`utils.graphs.Capture.phases`; an inner phase's
+    nodes are the inner one's), which adds no node and runs nothing at
+    replay; inside a WHILE node's body (or a capture that records no
+    phases) nothing.  Elsewhere ``span(name)``, so an eager call's trace
+    carries the same names."""
+    from . import graphs
+
+    inside = graphs._INSIDE
+    if getattr(inside, "capturing", False):
+        marks = getattr(inside, "marks", None)
+        if marks is None or getattr(inside, "loop_buffers", ()):
+            return _NULL
+        return _Phase(name, marks)
+    return span(name)
 
 
 @contextlib.contextmanager
@@ -63,6 +173,8 @@ class _NanCheck(TorchDispatchMode):
     output holds a NaN, while `fused.CHECK_NANS` is set."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from ..kernels import fused as _fused
+
         out = func(*args, **(kwargs or {}))
         if _fused.CHECK_NANS:
             for t in tree_flatten(out)[0]:
@@ -81,6 +193,8 @@ def debug_nans(enable: bool = True):
     previous settings are restored on exit.  Every check reads the device,
     so the block synchronises after each operator, and the entry points run
     uncaptured inside it (no CUDA graph, `utils.graphs`)."""
+    from ..kernels import fused as _fused
+
     old_flag = _fused.CHECK_NANS
     _fused.CHECK_NANS = enable
     try:
@@ -115,6 +229,9 @@ def no_recompile_guard(allowed: int = 0):
     Usage: warm the solver up once, then wrap the steady-state loop; an
     event means a shape or a setting leaked into the loop (a new batch
     size, say) — the analog of the reference's runtime-malloc checker."""
+    from ..kernels import _build
+    from . import graphs as _graphs
+
     events = CompileEvents()
     captures0, builds0, segments0 = len(_graphs.CAPTURES), _build.BUILDS, _segments()
     try:
@@ -177,6 +294,7 @@ def debug_mirror(tree, params, q, problem, warm_state=None, result=None,
     Returns the logging SolveResult of the eager mirror run.
     """
     from ..solver.solve import _as_batch, _solve_impl
+    from ..solver.state import LOG_FIELDS
 
     q = _as_batch(tree, q)
     B = q.shape[0]
@@ -247,3 +365,139 @@ class Timer:
         import numpy as np
 
         return float(np.percentile(self.samples, p) * 1e3)
+
+
+# the trace's categories of device operations, by the graph node type that
+# makes each (`utils.graphs.node_kinds`)
+_DEVICE_CATS = {"kernel": 0, "gpu_memcpy": 1, "gpu_memset": 2}
+# node types that run nothing a trace shows: host, empty, event wait and
+# record, external semaphores, memory allocation and release
+_SILENT = frozenset({3, 5, 6, 7, 8, 9, 10, 11})
+
+
+class PhaseSplit(NamedTuple):
+    """`phase_device_us`' answer: device microseconds by phase (None: the
+    nodes outside every phase), the replays attributed and those not."""
+
+    us: Dict[Optional[str], float]
+    replays: int
+    unattributed: int
+
+
+def _template(cap):
+    """The device operations a replay of ``cap`` runs, in order: (node
+    type, kernel name, phase) for a node, (None, its body's template,
+    phase) for a WHILE node, whose body runs any number of times; None if
+    a replay cannot be told op by op (no listing of the graph's nodes, not
+    one chain, a child graph)."""
+    from . import graphs
+
+    listing = graphs.node_kinds(cap)
+    if listing is None:
+        return None
+    (kinds, linear), bodies = listing
+    if not (kinds and linear):
+        return None
+    label = [None] * len(kinds)
+    for name, first, end in cap.phases:
+        label[first:end] = [name] * (end - first)
+    loops = iter(bodies)
+    out = []
+    for (kind, name), lab in zip(kinds, label):
+        if kind == graphs.NODE_CONDITIONAL:
+            body_kinds, body_linear = next(loops, ((), False))
+            if not (body_kinds and body_linear):
+                return None
+            body = [(k, n, lab) for k, n in body_kinds if k not in _SILENT]
+            if any(k not in _DEVICE_CATS.values() for k, _, _ in body):
+                return None
+            out.append((None, body, lab))
+        elif kind in _DEVICE_CATS.values():
+            out.append((kind, name, lab))
+        elif kind not in _SILENT:
+            return None
+    return out
+
+
+# the kernels the CUDA driver runs a graph's copy and set nodes as (an H100 under
+# CUDA 12.8 runs a device-to-device copy node as ``memcpy32_post``)
+_NODE_KERNELS = {1: "memcpy", 2: "memset"}
+
+
+def _same(node, op) -> bool:
+    """Whether the trace's device operation ``op`` is the run of ``node``."""
+    kind, kernel, _ = node
+    cat, name = _DEVICE_CATS.get(op.get("cat")), op.get("name", "")
+    if kind == 0:
+        return cat == 0 and name == kernel
+    return cat == kind or (cat == 0 and name.startswith(_NODE_KERNELS[kind]))
+
+
+def _labels(template, ops) -> Optional[list]:
+    """The phase of each of a replay's ``ops`` (in time order) under
+    ``template`` (`_template`), or None where they do not match it one for
+    one."""
+    out, j = [], 0
+    for node in template:
+        if node[0] is None:
+            body = node[1]
+            while body and j + len(body) <= len(ops) and all(
+                    _same(b, ops[j + i]) for i, b in enumerate(body)):
+                out += [node[2]] * len(body)
+                j += len(body)
+        elif j < len(ops) and _same(node, ops[j]):
+            out.append(node[2])
+            j += 1
+        else:
+            return None
+    return out if j == len(ops) else None
+
+
+def phase_device_us(events) -> PhaseSplit:
+    """Device time by solver phase of the graph replays in a Chrome trace
+    of torch.profiler (``events``: its event dicts, as `trace()` writes
+    them; the device and host events of a trace, in any order).
+
+    The device operations of one replay share the correlation id of its
+    ``cudaGraphLaunch``; in time order they are matched to the labelled
+    nodes of a capture of this process (`utils.graphs.CAPTURES`, whose
+    graphs still live; those of the tag of the ``graphs.replay:<tag>``
+    span around the launch, where there is one): the same count, node type
+    for type, a kernel's name its function's, a WHILE node's body whole any
+    number of times (its operations are the phase the node was captured
+    in).  A replay that no
+    capture matches, or that captures of different phases match, is
+    counted unattributed: this never guesses."""
+    from . import graphs
+
+    templates = [(c.tag, t) for c in list(graphs.CAPTURES) if (t := _template(c)) is not None]
+    by_corr = collections.defaultdict(list)
+    launches, spans = [], []
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        corr = (e.get("args") or {}).get("correlation")
+        if cat in _DEVICE_CATS and corr is not None and "ts" in e:
+            by_corr[corr].append(e)
+        elif cat in ("cuda_runtime", "cuda_driver") and "GraphLaunch" in name \
+                and corr is not None:
+            launches.append(e)
+        elif name.startswith("graphs.replay:") and "dur" in e:
+            spans.append(e)
+    us: Dict[Optional[str], float] = collections.defaultdict(float)
+    replays = unattributed = 0
+    for launch in launches:
+        t = float(launch["ts"])
+        tags = {s["name"].split(":", 1)[1] for s in spans
+                if s.get("tid") == launch.get("tid")
+                and float(s["ts"]) <= t <= float(s["ts"]) + float(s["dur"])}
+        ops = sorted(by_corr.get(launch["args"]["correlation"], []),
+                     key=lambda e: float(e["ts"]))
+        found = {tuple(lab) for tag, tpl in templates if not tags or tag in tags
+                 if (lab := _labels(tpl, ops)) is not None}
+        if len(found) != 1:
+            unattributed += 1
+            continue
+        replays += 1
+        for op, lab in zip(ops, found.pop()):
+            us[lab] += float(op.get("dur", 0))
+    return PhaseSplit(dict(us), replays, unattributed)

@@ -124,7 +124,7 @@ class FakeCapture:
             for a, b in zip(leaves, new):
                 a.copy_(b)
 
-        return replay, out, launches, 0, 0, 0.0
+        return replay, out, launches, 0, 0, 0.0, None
 
 
 def standin_while(device, pred, step, trips):
@@ -132,12 +132,13 @@ def standin_while(device, pred, step, trips):
     of the body, returning the next predicate) runs while the predicate
     holds, and each trip adds one to ``trips``, as the kernel that ends a
     body on the card does.  The node reads its predicate on the device;
-    here it is read out of the sight of `HostReads`."""
+    here it is read out of the sight of `HostReads`.  Returns the body's
+    nodes and its graph, none here."""
     while True:
         with torch._C.DisableTorchFunction():
             go = bool(pred)
         if not go:
-            return 0
+            return 0, None
         pred = step()
         with torch._C.DisableTorchFunction():
             trips.add_(1)
