@@ -79,7 +79,13 @@ Phases (any failure raises, so the script exits nonzero):
      the least time the card could take for the same work is computed
      from this run's shapes and iteration counts, and stage 1 is timed
      again at other numbers of problems per block and on a 64th and an 8th
-     of the batch;
+     of the batch.  The FK kernel (`kernels/csrc/fk.cu`, which every FK of
+     a main path on the card runs): its launch count set to 0 before the
+     main path's run equals the FK calls after it, and `fk_limi` at the
+     path's tree and configurations against the plain FK
+     (`fwd_kinematics`) within `FK_BUDGET` (rotations 2^-22, translations
+     2^-20 max(1, |p|)), timed with CUDA events and alone on the profiler,
+     with its byte bound (the `kernels` entry ``fk_limi/<path>``);
   6. multi-dof joints and tall trees against the eager loop: the double
      instantiation on solo12 (B=1024, check_interval 1 and 4) and talos
      (B=256, check_interval 1) within 1e-9, padded dof slots zero; the float
@@ -104,13 +110,15 @@ Phases (any failure raises, so the script exits nonzero):
      the eager loop (replayed as a graph of WHILE nodes) on every state
      field and 10 calls of `solve_tracking`; for each fleet, after five
      settling ticks, a stream of the sweep's first 25 ticks launches the
-     kernel exactly 25 times and enqueues WITHOUT A HOST SYNCHRONISATION
+     kernel and the FK kernel exactly 25 times each (the track_scan of
+     T=10 10 times each) and enqueues WITHOUT A HOST SYNCHRONISATION
      (counted with torch's sync debug mode); converged fraction, mean warm
      iterations and the float64 task residual of the last tick's converged
      problems (at most 1e-3); ms per tick by CUDA events around the whole
      stream, the host's enqueue time, the synchronous p50 of
      `solve_tracking`, the kernel alone per tick, the device's idle share
-     over one stream (torch.profiler), and the bound;
+     over one stream (torch.profiler), and the bound; the FK kernel at the
+     fleet's tree and configurations as in phase 5;
  12. the multistart path: the launch count rises by 2 per batch; in every
      batch the errors ascend, slots beyond num_converged are inf, and every
      finite slot's float64 task residual recomputed from (q, nu) is at most
@@ -277,6 +285,13 @@ import time
 
 SOURCE = "loik_tpu_torch/kernels/csrc/fused_admm.cu"
 REPLACES = "loik_tpu/kernels/fused.py:62"
+FK_SOURCE = "loik_tpu_torch/kernels/csrc/fk.cu"
+FK_REPLACES = "none: loik_tpu's FK is plain jnp (loik_tpu/model/tree.py:563)"
+# the FK kernel's budget against the plain FK (kernels/fk.py): a rotation
+# entry within 2^-22, a translation within 2^-20 max(1, |p|)
+FK_BUDGET = (2.0 ** -22, 2.0 ** -20)
+# the FK kernel's launches in one profiled run (`fk_report`)
+FK_PROFILED = 10
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FP32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -470,13 +485,13 @@ def event_ms(torch, fn):
     return res, start.elapsed_time(end)
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, kernel="fused_admm_kernel"):
     """One call of fn on torch.profiler.  Returns the wall time of the block
-    (ms, host clock, synced) and, in us, the device time of the fused
-    kernel's launches and of every kernel, copy and set, summed over the
-    events of the exported trace (`trace_device_us`), and the fused
-    kernel's time as `key_averages()` reports it (phase 16 sets the two
-    side by side)."""
+    (ms, host clock, synced) and, in us, the device time of the launches of
+    ``kernel`` (the fused kernel unless named) and of every kernel, copy
+    and set, summed over the events of the exported trace
+    (`trace_device_us`), and the kernel's time as `key_averages()` reports
+    it (phase 16 sets the two side by side)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -488,24 +503,24 @@ def profiled(torch, fn):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     avg_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                 if "fused_admm_kernel" in e.key)
+                 if kernel in e.key)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        launches, kernel_us, device_us = trace_device_us(path)
+        launches, kernel_us, device_us = trace_device_us(path, kernel)
         busy_us, span_us = trace_busy_span_us(path)
     return dict(wall_ms=wall, kernel_us=kernel_us, kernel_avg_us=avg_us,
                 device_us=device_us, launches=launches, busy_us=busy_us, span_us=span_us)
 
 
-def trace_device_us(path):
-    """From a Chrome trace of torch.profiler: (the fused kernel's launches,
+def trace_device_us(path, kernel="fused_admm_kernel"):
+    """From a Chrome trace of torch.profiler: (the launches of ``kernel``,
     their device time, the device time of every kernel, copy and set), us."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     ours = [e for e in device
-            if e.get("cat") == "kernel" and "fused_admm_kernel" in e.get("name", "")]
+            if e.get("cat") == "kernel" and kernel in e.get("name", "")]
     return (len(ours), sum(e.get("dur", 0) for e in ours),
             sum(e.get("dur", 0) for e in device))
 
@@ -532,11 +547,12 @@ def trace_busy_span_us(path):
     return busy, max(b for _, b in spans) - spans[0][0]
 
 
-def kernel_device_ms(torch, fn):
-    """Device time of the fused kernel itself in one call of fn, from the
-    profiler's trace (the CUDA-event times above also hold the wrapper's
-    operand copies and host work); None if the trace holds no launch."""
-    us = profiled(torch, fn)["kernel_us"]
+def kernel_device_ms(torch, fn, kernel="fused_admm_kernel"):
+    """Device time of the kernel itself (the fused kernel unless named) in
+    one call of fn, from the profiler's trace (the CUDA-event times above
+    also hold the wrapper's operand copies and host work); None if the
+    trace holds no launch."""
+    us = profiled(torch, fn, kernel)["kernel_us"]
     return us / 1e3 if us else None
 
 
@@ -781,10 +797,80 @@ def kernels_entry(name, launches, rep):
     }
 
 
+def fk_counted(mods, fn):
+    """fn() with the FK kernel's launch count set to 0 just before and read
+    just after, and the calls of `fwd_pass_init` counted.  Returns (fn's
+    result, the FK kernel's launches, the FK calls)."""
+    from loik_tpu_torch.kernels import fk
+
+    torch, sm = mods[0], mods[3]
+    fwd = sm.fwd_pass_init
+    calls = []
+
+    def counting(tree_, q_):
+        calls.append(q_.shape)
+        return fwd(tree_, q_)
+
+    sm.fwd_pass_init = counting
+    try:
+        fk.FK_LAUNCHES = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches = fk.FK_LAUNCHES
+    finally:
+        sm.fwd_pass_init = fwd
+    return res, launches, len(calls)
+
+
+def fk_report(mods, path, tree, q, launches):
+    """The FK kernel at a path's tree and configurations against the plain
+    FK (`fwd_kinematics`, in the kernel's layout), held to `FK_BUDGET`,
+    timed with CUDA events (median of 5) and alone on the profiler (the
+    mean over the launches that the trace of `FK_PROFILED` holds: the
+    trace of a single profiled launch held none), with its byte bound (q
+    read once, liMi written once); returns the path's `kernels` entry
+    ``fk_limi/<path>``."""
+    from loik_tpu_torch.kernels import fk
+
+    torch, sm = mods[0], mods[3]
+
+    def plain():
+        lR, lp, _, _ = tree.fwd_kinematics(q)
+        return lR.movedim(0, -1), lp.movedim(0, -1)
+
+    with sm.full_f32_matmul():
+        (R, p), (lR, lp) = fk.fk_limi(tree, q), plain()
+        d_R = float((R - lR).abs().max())
+        d_p = float(((p - lp).abs() / lp.abs().clamp(min=1)).max())
+        err = max(d_R, float((p - lp).abs().max()))
+        k_ms = cuda_median_ms(torch, lambda: fk.fk_limi(tree, q))
+        p_ms = cuda_median_ms(torch, plain)
+        prof = profiled(torch, lambda: [fk.fk_limi(tree, q) for _ in range(FK_PROFILED)],
+                        "fk_limi_kernel")
+    alone = prof["kernel_us"] / 1e3 / prof["launches"] if prof["launches"] else None
+    B, size = q.shape[0], q.element_size()
+    nbytes = B * tree.nq * size + B * tree.njoints * 12 * size
+    b_ms, b_by = bound_ms(nbytes, 0)
+    log(f"    FK kernel at B={B} ({tree.njoints} joints): rotations max |diff| {d_R:.3e} "
+        f"(budget {FK_BUDGET[0]:.3e}), translations {d_p:.3e} of max(1, |p|) (budget "
+        f"{FK_BUDGET[1]:.3e}); fk_limi {k_ms:.4f} ms (kernel alone "
+        f"{'not measured' if alone is None else f'{alone:.4f} ms'} on the profiler, "
+        f"{prof['launches']} of {FK_PROFILED} launches in its trace), plain "
+        f"FK {p_ms:.3f} ms; {nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms by {b_by}")
+    if not (d_R <= FK_BUDGET[0] and d_p <= FK_BUDGET[1]):
+        raise AssertionError(f"{path}: FK kernel against the plain FK beyond its budget")
+    return {
+        "name": f"fk_limi/{path}", "route": "cuda", "source": FK_SOURCE,
+        "replaces": FK_REPLACES, "launches": launches, "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "kernel_alone_ms": alone,
+    }
+
+
 def main_path(mods, name, phase):
-    """Drive one delta-duals main path through the kernel, check it against
-    the eager path and in float64, time it; returns the path's `kernels`
-    entry."""
+    """Drive one delta-duals main path through the kernels, check it
+    against the eager path and in float64, time it; returns the path's
+    `kernels` entries, the fused kernel's and the FK kernel's."""
     torch, lt, fused_mod = mods[:3]
     B, K = PATHS[name]["B"], PATHS[name]["K"]
     dev = torch.device("cuda")
@@ -792,12 +878,15 @@ def main_path(mods, name, phase):
     solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
     eager = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False)
 
-    res, launches, captured = capture_launches(
-        mods, lambda: solver.solve_refined(q, method="delta"))
+    (res, launches, captured), fk_launches, fk_calls = fk_counted(
+        mods, lambda: capture_launches(mods, lambda: solver.solve_refined(q, method="delta")))
     log(f"[{phase}] {name} main path B={B} check_interval={K} ({tree.njoints} joints, "
-        f"{tree.nv} dof, {len(links)} constraints): kernel launches {launches}")
+        f"{tree.nv} dof, {len(links)} constraints): kernel launches {launches}, FK kernel "
+        f"launches {fk_launches} for {fk_calls} FK calls")
     if launches != 2 or len(captured) != 2:
         raise AssertionError(f"expected 2 kernel launches, got {launches}")
+    if fk_calls < 1 or fk_launches != fk_calls:
+        raise AssertionError(f"{fk_launches} FK kernel launches for {fk_calls} FK calls")
 
     outcome_budget(res, eager.solve_refined(q, method="delta"), B, "eager")
     # certification honesty: recompute every task residual in float64 from (q, nu)
@@ -836,7 +925,7 @@ def main_path(mods, name, phase):
         sizes.append(f"{n}: {ms:.3f} ms (iterations max {int(its.max())}, "
                      f"mean {float(its.double().mean()):.2f})")
     log("    stage 1 by batch size: " + ", ".join(sizes))
-    return kernels_entry(name, launches, rep)
+    return [kernels_entry(name, launches, rep), fk_report(mods, name, tree, q, fk_launches)]
 
 
 def against_eager(mods, name, dtype, B, K, max_iter=200):
@@ -1092,10 +1181,10 @@ def tracking_path(mods, phase):
     kern, _, links, _, q = make(B, "require")
     ee = links[0]
     fused_mod.LAUNCHES = 0
-    got = kern.track_scan(q, sweep(n))
-    torch.cuda.synchronize()
-    if fused_mod.LAUNCHES != n:
-        raise AssertionError(f"track_scan: {fused_mod.LAUNCHES} launches for {n} ticks")
+    got, fk_launches, _ = fk_counted(mods, lambda: kern.track_scan(q, sweep(n)))
+    if fused_mod.LAUNCHES != n or fk_launches != n:
+        raise AssertionError(f"track_scan: {fused_mod.LAUNCHES} launches and {fk_launches} "
+                             f"FK kernel launches for {n} ticks")
     with graphs.disable_graphs(False):     # the eager loop's ticks as a graph (phase 19)
         want = make(B, False)[0].track_scan(q, sweep(n))
     errs = state_errors(torch, fused_mod._STATE_FIELDS, got.state, want.state)
@@ -1136,15 +1225,18 @@ def tracking_path(mods, phase):
             return out, host
 
         fused_mod.LAUNCHES = 0
-        (stream, host_ms), syncs = count_syncs(torch, timed)
+        ((stream, host_ms), syncs), fk_launches, _ = fk_counted(
+            mods, lambda: count_syncs(torch, timed))
         end.synchronize()
         launches = fused_mod.LAUNCHES
         tick_ms = start.elapsed_time(end) / T
-        log(f"[{phase}] tracking B={B} T={T} tol {tol:g}: {launches} launches, host "
-            f"synchronisations {len(syncs)}, {tick_ms:.4f} ms per tick (CUDA events "
-            f"around the stream), host enqueue {host_ms / T:.4f} ms per tick")
-        if launches != T:
-            raise AssertionError(f"expected {T} launches, got {launches}")
+        log(f"[{phase}] tracking B={B} T={T} tol {tol:g}: {launches} launches, "
+            f"{fk_launches} FK kernel launches, host synchronisations {len(syncs)}, "
+            f"{tick_ms:.4f} ms per tick (CUDA events around the stream), host enqueue "
+            f"{host_ms / T:.4f} ms per tick")
+        if launches != T or fk_launches != T:
+            raise AssertionError(f"expected {T} launches of each kernel, got {launches} "
+                                 f"and {fk_launches} FK")
         if syncs:
             raise AssertionError("the stream synchronises the host: " + "; ".join(syncs[:5]))
 
@@ -1206,6 +1298,7 @@ def tracking_path(mods, phase):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "kernel_alone_ms": alone, "stream_ms_per_tick": tick_ms,
         })
+        entries.append(fk_report(mods, f"tracking_B{B}", tree, q, fk_launches))
     return entries
 
 
@@ -2040,7 +2133,7 @@ def first_call(torch, what, fn):
         f"{cap.record_seconds:.3f}, instantiate {cap.instantiate_seconds:.3f}), graph pool "
         f"{cap.pool_bytes / 2**20:.1f} MiB "
         f"(memory_reserved across the capture), static inputs "
-        f"{cap.static_bytes / 2**20:.2f} MiB, {cap.launches} kernel launch(es) a replay")
+        f"{cap.static_bytes / 2**20:.2f} MiB, kernel launches a replay {cap.launches}")
     return res, secs, cap
 
 
@@ -3014,7 +3107,7 @@ def main() -> None:
         clock()
 
         # ---- 5. the flagship main path ---------------------------------------
-        kernels = [main_path(mods, "flagship", 5)]
+        kernels = main_path(mods, "flagship", 5)
         clock()
 
         # ---- 6. multi-dof joints and tall trees vs the eager loop ------------
@@ -3026,8 +3119,8 @@ def main() -> None:
         clock()
 
         # ---- 7, 8. the legged robots' main paths -----------------------------
-        kernels.append(main_path(mods, "solo12", 7))
-        kernels.append(main_path(mods, "talos", 8))
+        kernels += main_path(mods, "solo12", 7)
+        kernels += main_path(mods, "talos", 8)
         clock()
 
         # ---- 9, 10. per-problem subspaces and the mixed super-batch ----------

@@ -51,13 +51,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import threading
 import warnings
 from typing import Optional
 
 import torch
 
 from ..model.tree import derived
+from . import common
 from ..params import SolverParams
 from ..problem import IkProblem, validate_problem
 from ..solver.solve import _as_batch, _solve_impl, _solve_loop
@@ -79,30 +79,10 @@ _NACC = 16
 MAX_SMEM_BYTES = 232448
 
 # number of kernel launches in this process: a run can read it to show that
-# its main path went through the kernel (a sharded solve launches from one
-# host thread per card, hence the lock).  A launch recorded into a CUDA
-# graph being captured runs nothing then: it is counted per thread in
-# `_CAPTURED`, and every replay of the graph adds its launches here
-# (`utils.graphs`, `count_launches`)
+# its main path went through the kernel; counted by `COUNTER` (`kernels.common`
+# says how a captured launch and a graph's replays count)
 LAUNCHES = 0
-_LAUNCHES_LOCK = threading.Lock()
-_CAPTURED = threading.local()
-# set by `utils.debug_nans`: the kernel writes its state through pointers
-# no dispatch mode sees, so `fused_solve_loop` checks the state it returns
-# (it reads the device, so the entry points run uncaptured meanwhile)
-CHECK_NANS = False
-
-
-def count_launches(n: int) -> None:
-    """Add ``n`` launches to `LAUNCHES` (a replayed graph's)."""
-    global LAUNCHES
-    with _LAUNCHES_LOCK:
-        LAUNCHES += n
-
-
-def captured_launches() -> int:
-    """Launches this thread has recorded into CUDA graphs so far."""
-    return getattr(_CAPTURED, "n", 0)
+COUNTER = common.Launches("fused_admm", __name__, "LAUNCHES")
 
 # state fields that the kernel writes (everything except liMi and the logs),
 # in the order of the kernel's pointer array (csrc/fused_admm.cu::LoikPtr)
@@ -167,8 +147,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(_LoikConfig), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.loik_fused_admm_frame.restype = ctypes.c_int
-    lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.loik_cuda_error_string.restype = ctypes.c_char_p
     abi = [ctypes.c_int() for _ in range(8)]
     lib.loik_fused_admm_abi(*[ctypes.byref(x) for x in abi])
     want = (MAX_JOINTS, MAX_NV, MAX_CONSTRAINTS, SMALL_JOINTS, _N_PTRS,
@@ -431,13 +409,9 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError(
-            "fused ADMM kernel launch failed: "
-            f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
-    if capturing:
-        _CAPTURED.n = captured_launches() + 1
-    elif not rehearsal:
-        count_launches(1)
+        raise RuntimeError(f"fused ADMM kernel launch failed: {common.cuda_error(err, lib)}")
+    if not rehearsal:
+        COUNTER.launched(capturing)
     return dataclasses.replace(st, **out)
 
 
@@ -480,7 +454,7 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
     if st.vis.device.type != "cuda":
         raise ValueError(f"fused_solve_loop: no kernel for device {st.vis.device}")
     out = _launch(tree, params, prob, st, batch_tile)
-    if CHECK_NANS:
+    if common.CHECK_NANS:
         _check_nans(out)
     return out
 

@@ -98,8 +98,14 @@ def prepare_problem(tree, problem: IkProblem, B: int, dtype) -> PreparedProblem:
 
 
 def fwd_pass_init(tree, q):
-    """FK: liMi per joint in trailing-batch layout.  q (B, nq).
-    (FwdPassInit, loik-loid-optimized.hxx:253-283.)"""
+    """FK: liMi per joint in trailing-batch layout, (N,3,3,B) and (N,3,B).
+    q (B, nq).  (FwdPassInit, loik-loid-optimized.hxx:253-283.)  On a CUDA
+    tensor that needs no gradient, one launch of the FK kernel
+    (`kernels.fk`); else the plain FK."""
+    from ..kernels import fk
+
+    if fk.on_kernel(tree, q):
+        return fk.fk_limi(tree, q)
     lR, lp, _, _ = tree.fwd_kinematics(q)  # (B,N,3,3), (B,N,3)
     return lR.movedim(0, -1), lp.movedim(0, -1)
 

@@ -85,10 +85,10 @@ its pool and unregisters its generators, which breaks a capture under
 way): the graphs of a `jit` function that dies, or of `clear_graphs`, wait
 until the next entry-point call outside a capture.
 
-A replay launches the fused kernel as often as the capture recorded it
-(`Capture.launches`); each replay adds that many to
-`kernels.fused.LAUNCHES`, so the count still shows that a path went
-through the kernel.
+A replay launches each hand-written kernel as often as the capture
+recorded it (`Capture.launches`, per kernel); each replay adds that many
+to the kernel's count (`kernels.common`), so the counts still show that a
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -145,9 +145,10 @@ _COPIES_LOCK = threading.Lock()
 class Capture:
     """One capture: the entry point, its wall time (``seconds``, the sum of
     its three parts), the device memory the graph's private pool reserved,
-    the bytes of its static input buffers, the fused-kernel launches one
-    replay makes, its nodes (the WHILE nodes' bodies included) and its
-    WHILE nodes.  The parts: ``warm_seconds``, the eager warm-up (and
+    the bytes of its static input buffers, per hand-written kernel the
+    launches one replay makes (``launches``, under the names of
+    `kernels.common.KERNELS`), its nodes (the WHILE nodes' bodies
+    included) and its WHILE nodes.  The parts: ``warm_seconds``, the eager warm-up (and
     loading what a WHILE node launches); ``record_seconds``, the body
     recorded under `torch.cuda.graph` with the WHILE bodies' own captures,
     from the capture's start (a device synchronisation and emptying the
@@ -168,7 +169,7 @@ class Capture:
     seconds: float
     pool_bytes: int
     static_bytes: int
-    launches: int
+    launches: dict
     nodes: int = 0
     loops: tuple = ()
     warm_seconds: float = 0.0
@@ -485,9 +486,9 @@ def _graph_device(device: torch.device) -> bool:
 
 
 def _graphable(leaves) -> bool:
-    from ..kernels import fused
+    from ..kernels import common
 
-    if _DISABLED or fused.CHECK_NANS or getattr(_INSIDE, "active", False) or capturing():
+    if _DISABLED or common.CHECK_NANS or getattr(_INSIDE, "active", False) or capturing():
         return False
     if not leaves or not _graph_device(leaves[0].device):
         return False
@@ -522,11 +523,8 @@ def _capture_cuda(device, fn, generators=()):
     """Capture a call of ``fn`` as a CUDA graph on the side stream (the
     call runs nothing), the random generators ``generators`` registered with
     it (torch registers the default one itself).  Returns (replay, the
-    captured call's outputs, the fused kernel launches it recorded, the
-    bytes its private pool reserved, its nodes, the seconds its
-    instantiation took, `Capture.graph`)."""
-    from ..kernels import fused
-
+    captured call's outputs, the bytes its private pool reserved, its
+    nodes, the seconds its instantiation took, `Capture.graph`)."""
     side = _side_stream(device)
     cur = torch.cuda.current_stream(device)
     # torch.cuda.graph empties the allocator's cache on entry; empty it here
@@ -538,7 +536,6 @@ def _capture_cuda(device, fn, generators=()):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     for g in generators:
         graph.register_generator_state(g)
-    n0 = fused.captured_launches()
     first = None
     _INSIDE.body_pool = None
     try:
@@ -567,8 +564,7 @@ def _capture_cuda(device, fn, generators=()):
     if body_pool is not None:
         # the WHILE bodies' pool lives as long as the graph
         weakref.finalize(graph, torch._C._cuda_releasePool, *body_pool)
-    launches = fused.captured_launches() - n0
-    return (graph.replay, out, launches, torch.cuda.memory_reserved(device) - reserved,
+    return (graph.replay, out, torch.cuda.memory_reserved(device) - reserved,
             nodes, instantiate, weakref.ref(graph))
 
 
@@ -585,15 +581,18 @@ def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
     capture raised under the entry point's name and the capture logged;
     the graph lives until ``owner``, the call that replays it, is gone
     (`_GRAPHS`).  Returns (the warm-up's outputs, replay, the captured
-    call's outputs, launches a replay makes)."""
+    call's outputs, per kernel the launches a replay makes)."""
+    from ..kernels import common
+
     t0 = time.perf_counter()
     with inline():
         warm = _warm_up(device, warm_fn)
         _prepare(device)              # load what a WHILE node launches
         t1 = time.perf_counter()
         _INSIDE.capturing, _INSIDE.loops, _INSIDE.marks = True, [], []
+        before = common.recorded()
         try:
-            replay, out, launches, pool, nodes, inst, graph = _capture(device, fn, generators)
+            replay, out, pool, nodes, inst, graph = _capture(device, fn, generators)
         except Exception as e:
             raise RuntimeError(
                 f"{tag}: capturing the CUDA graph failed ({type(e).__name__}: {e}); a "
@@ -608,6 +607,7 @@ def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
             loops, _INSIDE.loops = tuple(_INSIDE.loops), []
             marks, _INSIDE.marks = _INSIDE.marks, None
     warm_s, record_s = t1 - t0, time.perf_counter() - t1 - inst
+    launches = common.recorded_since(before)
     CAPTURES.append(Capture(tag, warm_s + record_s + inst, pool, static_bytes, launches,
                             nodes + sum(lp.body_nodes for lp in loops), loops,
                             warm_s, record_s, inst, _phases(marks, nodes), graph))
@@ -763,15 +763,14 @@ def _while_library():
                  "loik_while_abort", "loik_capture_nodes", "loik_capture_graph",
                  "loik_graph_nodes"):
         getattr(lib, name).restype = ctypes.c_int
-    lib.loik_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.loik_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check(lib, err, what):
+    from ..kernels import common
+
     if err:
-        raise RuntimeError(f"while_loop: {what} failed: "
-                           f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
+        raise RuntimeError(f"while_loop: {what} failed: {common.cuda_error(err, lib)}")
 
 
 def _prepare(device) -> None:
@@ -838,6 +837,8 @@ def _list_nodes_cuda(graph) -> tuple:
     "" for another node); and whether the nodes form one chain in that
     order, as a capture on one stream records them (a replay then runs
     them in it)."""
+    from ..kernels import common
+
     lib = _while_library()
     n_max, cap = 4096, 1 << 20
     while True:
@@ -850,7 +851,7 @@ def _list_nodes_cuda(graph) -> tuple:
             n_max, cap = max(n_max, n.value), max(cap, used.value)
             continue
         if err:
-            raise RuntimeError(f"{lib.loik_cuda_error_string(err).decode()} (cuda error {err})")
+            raise RuntimeError(common.cuda_error(err, lib))
         break
     lines = names.raw[:used.value].decode(errors="replace").split("\n")
     kinds = tuple((types[i], lines[i]) for i in range(n.value))
@@ -1039,7 +1040,7 @@ class _Call:
         """A replay of the graph on ``leaves``; ``start``: the host clock
         (`time.perf_counter_ns`) when the call's key began (`copy_stats`;
         None: the call is not timed)."""
-        from ..kernels import fused
+        from ..kernels import common
 
         tag = self.tag
         clock = [start, time.perf_counter_ns()]
@@ -1062,7 +1063,7 @@ class _Call:
             with span("graphs.clone_out", tag):
                 if self.rng is not None:
                     generator.set_state(self.rng.get_state())
-                fused.count_launches(self.launches)
+                common.replayed(self.launches, 1)
                 out = _unflatten(self.out_spec, iter(_fresh(self.out)))
             clock.append(time.perf_counter_ns())
             _count_copies(tag, 1, self.in_bytes - held, self.out_bytes, clock)
@@ -1357,7 +1358,7 @@ class _Scan:
 
     def __call__(self, leaves, trees, start=None):
         """The ticks replayed on ``leaves``; ``start`` as `_Call`'s."""
-        from ..kernels import fused
+        from ..kernels import common
 
         tag = self.tag
         clock = [start, time.perf_counter_ns()]
@@ -1371,7 +1372,7 @@ class _Scan:
                     self.replay()
             clock.append(time.perf_counter_ns())
             with span("graphs.clone_out", tag):
-                fused.count_launches(self.launches * self.length)
+                common.replayed(self.launches, self.length)
                 out = (_unflatten(self.carry_spec, iter(_fresh(self.carry))),
                        _unflatten(self.y_spec, iter(_fresh(self.ys))))
             clock.append(time.perf_counter_ns())

@@ -42,7 +42,8 @@ record which of the graph's nodes each phase recorded
   (`refine.solve_delta_duals`, `solve_two_stage`, `_delta_refined`).
 - ``solver.update``: the tracking tick's constraint update
   (`api.DiffIkSolver.solve_tracking`).
-- ``solver.fk``: forward kinematics (`solve._solve_impl`).
+- ``solver.fk``: forward kinematics (`solve._solve_impl`): on the card one
+  launch of the FK kernel (`kernels.fk`), one node of a graph.
 - ``solver.prepare``: `prepare_problem`, the configuration-dependent S,
   the tolerance floors and a cold state (`_solve_impl`); the delta problem
   and warm start of `refine._delta_refined`; the kernel's operands made
@@ -60,9 +61,16 @@ record which of the graph's nodes each phase recorded
 Counters: `utils.graphs.copy_stats()` (per tag: calls and replays, bytes
 copied in and cloned out, and the host clock's time of the key, copy-in,
 replay and clone-out steps of the calls made while no profiler ran);
-`utils.graphs.CAPTURES` (a capture's seconds, nodes and phases),
-`kernels.fused.LAUNCHES`, `kernels._build.BUILDS` and
-`graphs.body_executions()`.
+`utils.graphs.CAPTURES` (a capture's seconds, nodes and phases, and per
+kernel the launches a replay makes), `kernels._build.BUILDS` and
+`graphs.body_executions()`; and `kernel_counts()`, which reads the launches
+of every hand-written kernel (`kernels.common`: ``fused_admm``, counted in
+`kernels.fused._launch` as `kernels.fused.LAUNCHES`, and ``fk_limi``, in
+`kernels.fk.fk_limi` as `kernels.fk.FK_LAUNCHES`; both with every replay of
+a graph that recorded them, added by `utils.graphs`) and
+`kernels.fk.PLAIN_CALLS` (per reason, the calls of
+`solver.solve.fwd_pass_init` on CUDA tensors that took the plain FK,
+counted in `kernels.fk.on_kernel`).
 """
 
 from __future__ import annotations
@@ -145,6 +153,16 @@ def phase(name: str):
     return span(name)
 
 
+def kernel_counts() -> dict:
+    """The kernels' counters (the module docstring says where they sit):
+    ``launches`` (kernel name -> launches) and ``fk_plain_calls`` (reason
+    -> calls)."""
+    from ..kernels import common, fk, fused  # noqa: F401  (each registers its count)
+
+    return {"launches": {name: c.count() for name, c in common.KERNELS.items()},
+            "fk_plain_calls": dict(fk.PLAIN_CALLS)}
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Profile a block with `torch.profiler` (CPU ops, and the CUDA kernels
@@ -170,13 +188,13 @@ def trace(log_dir: Optional[str] = None):
 
 class _NanCheck(TorchDispatchMode):
     """Raises FloatingPointError on the first operator whose floating
-    output holds a NaN, while `fused.CHECK_NANS` is set."""
+    output holds a NaN, while `kernels.common.CHECK_NANS` is set."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from ..kernels import fused as _fused
+        from ..kernels import common
 
         out = func(*args, **(kwargs or {}))
-        if _fused.CHECK_NANS:
+        if common.CHECK_NANS:
             for t in tree_flatten(out)[0]:
                 if isinstance(t, torch.Tensor) and t.is_floating_point() and bool(t.isnan().any()):
                     raise FloatingPointError(f"debug_nans: NaN in the output of {func}")
@@ -187,21 +205,21 @@ class _NanCheck(TorchDispatchMode):
 def debug_nans(enable: bool = True):
     """Raise FloatingPointError at the first NaN produced inside the block
     (the analog of jax's ``jax_debug_nans``): every eager operator's output
-    (a dispatch mode), every fused kernel launch's output state, and the
+    (a dispatch mode), what every launch of a hand-written kernel wrote, and the
     backward pass (`torch.autograd.set_detect_anomaly` with check_nan).
     ``enable=False`` turns the checks off inside an enabled block.  The
     previous settings are restored on exit.  Every check reads the device,
     so the block synchronises after each operator, and the entry points run
     uncaptured inside it (no CUDA graph, `utils.graphs`)."""
-    from ..kernels import fused as _fused
+    from ..kernels import common
 
-    old_flag = _fused.CHECK_NANS
-    _fused.CHECK_NANS = enable
+    old_flag = common.CHECK_NANS
+    common.CHECK_NANS = enable
     try:
         with _NanCheck(), torch.autograd.set_detect_anomaly(enable, check_nan=True):
             yield
     finally:
-        _fused.CHECK_NANS = old_flag
+        common.CHECK_NANS = old_flag
 
 
 @dataclass

@@ -98,7 +98,6 @@ class FakeCapture:
             self.mode = None
 
     def __call__(self, device, fn, generators=()):
-        n0 = fused.captured_launches()
         # a capture draws nothing from the generators registered with it
         # (torch's default one among them); a replay advances them
         states = [g.get_state() for g in generators]
@@ -109,7 +108,6 @@ class FakeCapture:
             g.set_state(st)
         torch.random.set_rng_state(default)
         self.reads.append(reads.calls)
-        launches = fused.captured_launches() - n0
         leaves = []
         graphs._flatten(out, leaves)
 
@@ -124,7 +122,7 @@ class FakeCapture:
             for a, b in zip(leaves, new):
                 a.copy_(b)
 
-        return replay, out, launches, 0, 0, 0.0, None
+        return replay, out, 0, 0, 0.0, None
 
 
 def standin_while(device, pred, step, trips):
@@ -167,10 +165,8 @@ def standin_loop(monkeypatch, fake_graphs):
         body = tsm.make_loop_body(tree, prob, params)
         for _ in range(3):
             st = body(st)
-        if fake_graphs.mode == "capture":
-            fused._CAPTURED.n = fused.captured_launches() + 1
-        elif fake_graphs.mode != "replay":
-            fused.count_launches(1)
+        if fake_graphs.mode != "replay":
+            fused.COUNTER.launched(fake_graphs.mode == "capture")
         return st
 
     monkeypatch.setattr(fused, "_solve_loop", loop)
@@ -516,7 +512,7 @@ def test_fused_false_runs_uncaptured(fake_graphs):
     lt.solve_stream(tree, lt.SolverParams(**TRACK), q, problem, 0, b_sweep(2), fused=False)
     assert len(graphs.CAPTURES) == n + 2
     for cap in graphs.CAPTURES[n:]:
-        assert cap.launches == 0 and cap.loops, cap
+        assert cap.launches.get("fused_admm", 0) == 0 and cap.loops, cap
 
 
 @pytest.mark.parametrize("name,launches,ticks", [
@@ -528,7 +524,7 @@ def test_replays_count_the_launches_they_recorded(name, launches, ticks, fake_gr
     does (its warm-up is its work); a first scan adds its warm-up tick."""
     n0 = fused.LAUNCHES
     run_path(name)
-    assert graphs.CAPTURES[-1].launches == launches
+    assert graphs.CAPTURES[-1].launches["fused_admm"] == launches
     first = launches * (ticks + 1 if ticks > 1 else 1)
     assert fused.LAUNCHES - n0 == first
     run_path(name)

@@ -147,9 +147,8 @@ class CountingCapture(FakeCapture):
         self.ops = OpCount()
         try:
             with self.ops:
-                replay, out, launches, pool, _, inst, graph = super().__call__(
-                    device, fn, generators)
-            return replay, out, launches, pool, self.ops.n, inst, graph
+                replay, out, pool, _, inst, graph = super().__call__(device, fn, generators)
+            return replay, out, pool, self.ops.n, inst, graph
         finally:
             self.ops = None
 

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import loik_tpu_torch as lt
-from loik_tpu_torch.kernels import _build, fused
+from loik_tpu_torch.kernels import _build, common, fused
 from loik_tpu_torch.kernels.fused import solve_fused
 from loik_tpu_torch.solver.state import LOG_FIELDS, init_state
 from loik_tpu_torch.utils import (MirrorMismatch, Timer, debug_mirror, debug_nans,
@@ -220,18 +220,18 @@ def test_debug_nans_raises_and_restores():
     x = torch.zeros(3)
     st = dataclasses.replace(init_state(lt.robots.ur5(device="cpu"), 2, 1, torch.float64),
                              mu=torch.tensor([0.1, float("nan")], dtype=torch.float64))
-    assert not fused.CHECK_NANS
+    assert not common.CHECK_NANS
     with debug_nans():
-        assert fused.CHECK_NANS and torch.is_anomaly_enabled()
+        assert common.CHECK_NANS and torch.is_anomaly_enabled()
         with pytest.raises(FloatingPointError, match="div"):
             x / x
         y = x + 1.0                          # NaN-free work passes
         with debug_nans(False):              # and can be switched off inside
             assert torch.isnan(x / x).all()
-        assert fused.CHECK_NANS
+        assert common.CHECK_NANS
         with pytest.raises(FloatingPointError, match="field mu"):
             fused._check_nans(st)            # what a launch's output goes through
-    assert not fused.CHECK_NANS and not torch.is_anomaly_enabled()
+    assert not common.CHECK_NANS and not torch.is_anomaly_enabled()
     assert torch.isnan(x / x).all() and torch.equal(y, torch.ones(3))
 
 

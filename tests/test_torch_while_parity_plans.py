@@ -42,7 +42,7 @@ def test_graphed_two_stage_mobile_ur5_matches_reference(fake_graphs):  # noqa: F
         task, box = certified(res_t, q, "mobile_ur5", jp)
         assert task <= 1e-5 and box <= 1e-5
     assert len(graphs.CAPTURES) == n + 1
-    assert len(graphs.CAPTURES[-1].loops) == 2 and graphs.CAPTURES[-1].launches == 0
+    assert len(graphs.CAPTURES[-1].loops) == 2 and graphs.CAPTURES[-1].launches.get("fused_admm", 0) == 0
 
 
 def test_graphed_solve_scan_matches_reference(fake_graphs):  # noqa: F811
