@@ -180,17 +180,31 @@ class Capture:
     # `node_kinds`' answer, once asked
     listing: list = dataclasses.field(default_factory=list, compare=False, repr=False)
 
+    @property
+    def phase_nodes(self) -> dict:
+        """The nodes per phase (``{phase: nodes}``, None outside every
+        phase), a WHILE node's body in the phase of its node: they add up
+        to ``nodes``."""
+        split: dict = {}
+        for name, first, end in self.phases:
+            split[name] = split.get(name, 0) + end - first
+        for lp in self.loops:
+            split[lp.phase] = split.get(lp.phase, 0) + lp.body_nodes
+        return split
+
 
 @dataclasses.dataclass(frozen=True)
 class Loop:
     """One WHILE node of a capture: its body graph's nodes and, per carry
     tensor in order, the bytes its body copies back every trip (0 for one
     the body wrote in place or left as it was); ``body``, the body graph (a
-    cudaGraph_t, which the WHILE node owns; None on the CPU)."""
+    cudaGraph_t, which the WHILE node owns; None on the CPU); ``phase``, the
+    solver phase the node was recorded in (None: outside every phase)."""
 
     body_nodes: int
     copies: tuple
     body: int = None
+    phase: str = None
 
 
 # `node_kinds`' node types (cudaGraphNodeType) that a trace shows as a
@@ -261,9 +275,25 @@ def copy_stats() -> dict:
     built and looked up), ``copy_in_ns``, ``replay_ns`` (the launches) and
     ``clone_out_ns``, as ``{tag: {"calls", "replays", "bytes_in",
     "bytes_out", "timed", "key_ns", "copy_in_ns", "replay_ns",
-    "clone_out_ns"}}``.  Plain integer adds, always on."""
+    "clone_out_ns"}}``.  Plain integer adds, always on.
+
+    Besides, for each tag whose captures (in `CAPTURES`) all have the same
+    nodes, read off them at capture and never at a replay: ``nodes``, the
+    graph's nodes, and ``phase_nodes``, those nodes per solver phase
+    (`Capture.nodes`, `Capture.phase_nodes`).  A tag holds a graph per
+    topology and shape; where its graphs' nodes differ, a replay's are not
+    known from the tag, and the two are left out.  A tag captured and not
+    yet replayed has zero counts."""
     with _COPIES_LOCK:
-        return {tag: dict(zip(_STATS, v)) for tag, v in _COPIES.items()}
+        out = {tag: dict(zip(_STATS, v)) for tag, v in _COPIES.items()}
+    nodes: dict = {}
+    for cap in list(CAPTURES):
+        nodes.setdefault(cap.tag, []).append((cap.nodes, cap.phase_nodes))
+    for tag, seen in nodes.items():
+        v = out.setdefault(tag, dict.fromkeys(_STATS, 0))
+        if all(s == seen[0] for s in seen):
+            v.update(nodes=seen[0][0], phase_nodes=seen[0][1])
+    return out
 
 
 def _count_copies(tag, replays, bytes_in, bytes_out, clock) -> None:
@@ -737,7 +767,9 @@ def while_loop(cond: Callable, body: Callable, carry):
         return cond(carry).reshape(())
 
     body_nodes, body_graph = _while_node(dev, cond(carry).reshape(()), step, _trips(dev))
-    _INSIDE.loops.append(Loop(body_nodes, tuple(copies), body_graph))
+    marks = getattr(_INSIDE, "marks", None)
+    _INSIDE.loops.append(Loop(body_nodes, tuple(copies), body_graph,
+                              marks[-1][1] if marks else None))
     return carry
 
 

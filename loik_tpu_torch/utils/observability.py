@@ -60,7 +60,9 @@ record which of the graph's nodes each phase recorded
 
 Counters: `utils.graphs.copy_stats()` (per tag: calls and replays, bytes
 copied in and cloned out, and the host clock's time of the key, copy-in,
-replay and clone-out steps of the calls made while no profiler ran);
+replay and clone-out steps of the calls made while no profiler ran; and,
+taken at capture where the tag's graphs agree on them, its graph's nodes
+and their split by phase);
 `utils.graphs.CAPTURES` (a capture's seconds, nodes and phases, and per
 kernel the launches a replay makes), `kernels._build.BUILDS` and
 `graphs.body_executions()`; and `kernel_counts()`, which reads the launches
