@@ -85,7 +85,14 @@ Phases (any failure raises, so the script exits nonzero):
      path's tree and configurations against the plain FK
      (`fwd_kinematics`) within `FK_BUDGET` (rotations 2^-22, translations
      2^-20 max(1, |p|)), timed with CUDA events and alone on the profiler,
-     with its byte bound (the `kernels` entry ``fk_limi/<path>``);
+     with its byte bound (the `kernels` entry ``fk_limi/<path>``).  The
+     KKT64 kernel (`kernels/csrc/kkt64.cu`, the float64 KKT step between
+     the two stages): its launch count set to 0 before the run equals the
+     delta-duals calls after it, and `kkt64_step` on the stage-1 state and
+     prepared problem that the run handed it equals the plain float64
+     step (`refine._kkt64_plain`) on every output in every bit, timed
+     with CUDA events and alone on the profiler, with its byte bounds
+     (the `kernels` entry ``kkt64/<path>``; phase 10 likewise);
   6. multi-dof joints and tall trees against the eager loop: the double
      instantiation on solo12 (B=1024, check_interval 1 and 4) and talos
      (B=256, check_interval 1) within 1e-9, padded dof slots zero; the float
@@ -292,6 +299,8 @@ FK_REPLACES = "none: loik_tpu's FK is plain jnp (loik_tpu/model/tree.py:563)"
 FK_BUDGET = (2.0 ** -22, 2.0 ** -20)
 # the FK kernel's launches in one profiled run (`fk_report`)
 FK_PROFILED = 10
+KKT64_SOURCE = "loik_tpu_torch/kernels/csrc/kkt64.cu"
+KKT64_REPLACES = "none: loik_tpu's float64 KKT step is plain jnp (loik_tpu/solver/refine.py)"
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FP32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -730,11 +739,14 @@ def certify(mods, tree, problem, links, q, res, label=""):
 def host_split(mods, fn):
     """Where the host's time goes: one call of fn with a synchronize around
     each layer."""
+    from loik_tpu_torch.kernels import kkt64
+
     torch, _, fused_mod, sm, rf, _ = mods
     split = HostSplit(torch, [
         ("FK", sm, "fwd_pass_init"), ("prepare", sm, "prepare_problem"),
         ("prepare", rf, "prepare_problem"), ("reset", sm, "_reset_state"),
         ("reset", rf, "_reset_state"), ("f64 KKT", rf, "kkt_residual"),
+        ("f64 KKT", kkt64, "kkt64_step"),
         ("kernel wrapper", fused_mod, "fused_solve_loop")])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -867,10 +879,99 @@ def fk_report(mods, path, tree, q, launches):
     }
 
 
+def kkt64_counted(mods, fn):
+    """fn() with the KKT64 kernel's launch count set to 0 just before and
+    read just after, the bodies of `solve_delta_duals` (`refine.
+    _delta_duals`, one a call while graphs are off) counted and every
+    `kkt64_step` call's inputs recorded.  Returns (fn's result, the
+    kernel's launches, the bodies run, the recorded calls)."""
+    from loik_tpu_torch.kernels import kkt64
+
+    torch, rf = mods[0], mods[4]
+    body, step = rf._delta_duals, kkt64.kkt64_step
+    bodies, recorded = [], []
+
+    def counting(*a, **kw):
+        bodies.append(1)
+        return body(*a, **kw)
+
+    def recording(tree_, problem_, prob32_, st_, lib=None):
+        recorded.append((tree_, problem_, prob32_, st_))
+        return step(tree_, problem_, prob32_, st_, lib)
+
+    rf._delta_duals, kkt64.kkt64_step = counting, recording
+    try:
+        kkt64.KKT64_LAUNCHES = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches = kkt64.KKT64_LAUNCHES
+    finally:
+        rf._delta_duals, kkt64.kkt64_step = body, step
+    return res, launches, len(bodies), recorded
+
+
+def kkt64_report(mods, path, launches, bodies, recorded):
+    """The KKT64 kernel on the stage-1 state and prepared problem that a
+    path's first delta-duals call handed it (``recorded``, from
+    `kkt64_counted`) against the plain float64 step
+    (`refine._kkt64_plain`): every output equal in every bit (tolerance
+    0), the launches equal to the bodies run; timed with CUDA events
+    (median of 5) and alone on the profiler (the mean over the launches
+    that a trace of `FK_PROFILED` holds), with two byte bounds
+    (`kkt64.step_bytes`: every output written, and only the outputs that
+    are not zero).  Returns the path's `kernels` entry ``kkt64/<path>``."""
+    from loik_tpu_torch.kernels import kkt64
+
+    torch, rf = mods[0], mods[4]
+    if bodies < 1 or launches != bodies or not recorded:
+        raise AssertionError(f"{path}: {launches} KKT64 kernel launches for {bodies} "
+                             f"delta-duals calls ({len(recorded)} steps recorded)")
+    tree, problem, prob32, st = recorded[0]
+
+    def kernel():
+        return kkt64.kkt64_step(tree, problem, prob32, st)
+
+    def plain():
+        return rf._kkt64_plain(tree, problem, prob32, st)
+
+    with rf.full_f32_matmul():
+        got, want = kernel(), plain()
+        differ = bits_equal(torch, got, want)
+        err = max((float((x.double() - y.double()).abs().max())
+                   for x, y in zip(leaves(got), leaves(want))
+                   if x.numel() and x.is_floating_point()), default=0.0)
+        k_ms = cuda_median_ms(torch, kernel)
+        p_ms = cuda_median_ms(torch, plain)
+        prof = profiled(torch, lambda: [kernel() for _ in range(FK_PROFILED)], "kkt64_kernel")
+    alone = prof["kernel_us"] / 1e3 / prof["launches"] if prof["launches"] else None
+    nbytes, needed = kkt64.step_bytes(st, problem)
+    b_ms, b_by = bound_ms(nbytes, 0)
+    n_ms, _ = bound_ms(needed, 0)
+    N, K, B = st.nu.shape
+    same = "every output equal in every bit" if not differ else "outputs differ: " + ", ".join(differ)
+    log(f"    KKT64 kernel at B={B} ({N} joints, {K} dof slots a joint, "
+        f"{len(problem.constraint_links)} constraints): "
+        f"{launches} launches for {bodies} delta-duals calls; against the plain float64 "
+        f"step {same} (max |diff| {err:.3e}); kkt64_step {k_ms:.4f} ms (kernel alone "
+        f"{'not measured' if alone is None else f'{alone:.4f} ms'} on the profiler, "
+        f"{prof['launches']} of {FK_PROFILED} launches in its trace), plain step {p_ms:.3f} "
+        f"ms; {nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms by {b_by}; without the zeroed "
+        f"leaves {needed / 1e6:.2f} MB, {n_ms:.5f} ms")
+    if differ:
+        raise AssertionError(f"{path}: KKT64 kernel against the plain step: {differ}")
+    return {
+        "name": f"kkt64/{path}", "route": "cuda", "source": KKT64_SOURCE,
+        "replaces": KKT64_REPLACES, "launches": launches, "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "needed_bound_ms": n_ms, "library_ms": None, "kernel_alone_ms": alone,
+    }
+
+
 def main_path(mods, name, phase):
     """Drive one delta-duals main path through the kernels, check it
     against the eager path and in float64, time it; returns the path's
-    `kernels` entries, the fused kernel's and the FK kernel's."""
+    `kernels` entries, the fused kernel's, the FK kernel's and the KKT64
+    kernel's."""
     torch, lt, fused_mod = mods[:3]
     B, K = PATHS[name]["B"], PATHS[name]["K"]
     dev = torch.device("cuda")
@@ -878,8 +979,9 @@ def main_path(mods, name, phase):
     solver = lt.DiffIkSolver(tree, params, links, problem=problem, fused="require")
     eager = lt.DiffIkSolver(tree, params, links, problem=problem, fused=False)
 
-    (res, launches, captured), fk_launches, fk_calls = fk_counted(
-        mods, lambda: capture_launches(mods, lambda: solver.solve_refined(q, method="delta")))
+    ((res, launches, captured), fk_launches, fk_calls), kkt_launches, bodies, steps = \
+        kkt64_counted(mods, lambda: fk_counted(mods, lambda: capture_launches(
+            mods, lambda: solver.solve_refined(q, method="delta"))))
     log(f"[{phase}] {name} main path B={B} check_interval={K} ({tree.njoints} joints, "
         f"{tree.nv} dof, {len(links)} constraints): kernel launches {launches}, FK kernel "
         f"launches {fk_launches} for {fk_calls} FK calls")
@@ -925,7 +1027,8 @@ def main_path(mods, name, phase):
         sizes.append(f"{n}: {ms:.3f} ms (iterations max {int(its.max())}, "
                      f"mean {float(its.double().mean()):.2f})")
     log("    stage 1 by batch size: " + ", ".join(sizes))
-    return [kernels_entry(name, launches, rep), fk_report(mods, name, tree, q, fk_launches)]
+    return [kernels_entry(name, launches, rep), fk_report(mods, name, tree, q, fk_launches),
+            kkt64_report(mods, name, kkt_launches, bodies, steps)]
 
 
 def against_eager(mods, name, dtype, B, K, max_iter=200):
@@ -1053,7 +1156,8 @@ def subspaces_check(mods, phase):
 
 
 def mixed_path(mods, phase):
-    """Phase 10: the mixed super-batch main path."""
+    """Phase 10: the mixed super-batch main path; returns its `kernels`
+    entries, the fused kernel's and the KKT64 kernel's."""
     torch, lt, fused_mod, sm, rf, _ = mods
     B, K = PATHS["mixed"]["B"], PATHS["mixed"]["K"]
     mp, groups, params = mixed_setup(lt, torch, torch.float32, B // 2, K)
@@ -1062,8 +1166,9 @@ def mixed_path(mods, phase):
     def delta(fused):
         return lambda t, p, q, pr: rf.solve_delta_duals(t, p, q, pr, fused=fused)
 
-    res, launches, captured = capture_launches(
-        mods, lambda: mp.solve_packed(params, qs, solve_fn=delta("require")))
+    (res, launches, captured), kkt_launches, bodies, steps = kkt64_counted(
+        mods, lambda: capture_launches(
+            mods, lambda: mp.solve_packed(params, qs, solve_fn=delta("require"))))
     fleet = " + ".join(f"{b} {t.name}" for (t, _, _), b in zip(groups, mp.group_sizes))
     log(f"[{phase}] mixed main path B={B} ({fleet}) check_interval={K} (padded chain "
         f"of {mp.chain.njoints} joints): kernel launches {launches}")
@@ -1128,7 +1233,8 @@ def mixed_path(mods, phase):
         f"{float(res2.converged.double().mean()):.4f}, mean iterations "
         f"{float(res2.iterations.double().mean()):.2f}")
     stage_report(mods, captured2, eager_reps=1)
-    return kernels_entry("mixed", launches, rep)
+    return [kernels_entry("mixed", launches, rep),
+            kkt64_report(mods, "mixed", kkt_launches, bodies, steps)]
 
 
 def count_syncs(torch, fn):
@@ -3125,7 +3231,7 @@ def main() -> None:
 
         # ---- 9, 10. per-problem subspaces and the mixed super-batch ----------
         subspaces_check(mods, 9)
-        kernels.append(mixed_path(mods, 10))
+        kernels += mixed_path(mods, 10)
         clock()
 
         # ---- 11. warm-started tracking ---------------------------------------

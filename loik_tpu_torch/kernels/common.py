@@ -2,10 +2,11 @@
 check's switch and CUDA's error messages.
 
 Each kernel's wrapper owns a `Launches`, registered in `KERNELS` under its
-kernel's name (`kernels.fused`: ``fused_admm``, `kernels.fk`: ``fk_limi``).
-The count itself is an int of the wrapper's module (``fused.LAUNCHES``,
-``fk.FK_LAUNCHES``) that a run reads and may reset to show that its path
-went through the kernel.  A launch outside a capture adds one to it.  A
+kernel's name (`kernels.fused`: ``fused_admm``, `kernels.fk`: ``fk_limi``,
+`kernels.kkt64`: ``kkt64``).  The count itself is an int of the wrapper's
+module (``fused.LAUNCHES``, ``fk.FK_LAUNCHES``, ``kkt64.KKT64_LAUNCHES``)
+that a run reads and may reset to show that its path went through the
+kernel.  A launch outside a capture adds one to it.  A
 launch recorded into a CUDA graph being captured runs nothing then and
 counts per thread (`Launches.recorded`); `utils.graphs` takes what a
 capture recorded of every registered kernel (`recorded_since`) and adds it

@@ -9,7 +9,9 @@ float32 stage 1 at a tolerance above it:
   - `solve_delta_duals` (the flagship): one float64 KKT evaluation, then
     the SAME float32 solver on the shifted (delta) problem, whose in-loop
     quantities are O(stage-1 error).  Both float32 stages run the fused
-    kernel on the GPU.  Constant motion subspaces only.
+    kernel on the GPU, and the float64 step between them one launch of
+    `kernels.kkt64` (`_kkt64_plain` elsewhere).  Constant motion subspaces
+    only.
   - `solve_two_stage`: the float32 stage 1 (the fused kernel on the GPU
     where the tree allows it), then a short warm float64 stage 2 on the
     masked while loop.  The tight-tolerance path of every tree, including
@@ -37,7 +39,7 @@ from . import batched_spatial as bsp
 from .solve import (_as_batch, _flat_nu, _reset_state, _solve_impl,
                     _solve_loop, full_f32_matmul, kkt_residual,
                     prepare_problem)
-from .state import SolveResult, SolverState
+from .state import PreparedProblem, SolveResult, SolverState
 
 
 def default_batch_tile(njoints: int) -> int:
@@ -112,9 +114,10 @@ def solve_delta_duals(
     stages with their FK, prepare, reset and launch or masked while loop,
     the float64 KKT evaluation, the delta problem and the recombination)
     runs as ONE captured CUDA graph per key (`utils.graphs`, the
-    counterpart of loik_tpu's `_delta_duals_jit`); eagerly under
-    `utils.disable_graphs()` or `utils.debug_nans()`, on the CPU, and with
-    ``params.verbose`` (the loop prints from the host every body call).
+    counterpart of loik_tpu's `_delta_duals_jit`), the float64 step one
+    launch of `kernels.kkt64` unless an input requires a gradient; eagerly
+    under `utils.disable_graphs()` or `utils.debug_nans()`, on the CPU, and
+    with ``params.verbose`` (the loop prints from the host every body call).
 
     Constant-subspace trees only, as in loik_tpu (whose answer for
     universal / spherical-ZYX / mimic-pair joints is `solve_two_stage`)."""
@@ -146,12 +149,12 @@ def solve_delta_duals(
         check_feasibility=False,
         freeze_infeasible_on_warm_start=True,
     )
-    f32, f64 = torch.float32, torch.float64
+    f32 = torch.float32
 
     def body(tree, q, problem, warm_state):
         with phase("solver.cast"):
-            args = (tree.astype(f32), tree.astype(f64), p1, p2, q,
-                    _cast_problem(problem, f32), _cast_problem(problem, f64),
+            args = (tree, tree.astype(f32), p1, p2, q, problem,
+                    _cast_problem(problem, f32),
                     _cast_state(warm_state, f32) if warm_state is not None else None)
         return _delta_duals(*args, fused=fused, batch_tile=batch_tile)
 
@@ -161,11 +164,12 @@ def solve_delta_duals(
                       (q, problem, warm_state), capture=not params.verbose)
 
 
-def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
+def _delta_duals(tree, tree32, p1, p2, q, problem, prob32, warm_state,
                  fused=False, batch_tile=128) -> SolveResult:
-    """The body of loik_tpu's `_delta_duals_jit`."""
-    f32, f64 = torch.float32, torch.float64
-    B = q.shape[0]
+    """The body of loik_tpu's `_delta_duals_jit`.  ``tree`` and ``problem``
+    as the caller gave them (the float64 step reads them in their own
+    dtype), ``tree32`` and ``prob32`` their float32 casts."""
+    f32 = torch.float32
     if fused:
         from ..kernels.fused import fused_loop
 
@@ -176,62 +180,24 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
     # ---- stage 1: plain f32 solve at the f32-floor tolerance -------------
     with phase("solver.cast"):
         q32 = q.to(f32)
-    res1 = _solve_impl(tree32, p1, q32, prob32, warm_state, loop=loop)
+    res1, pp32 = _solve_impl(tree32, p1, q32, prob32, warm_state, loop=loop,
+                             with_problem=True)
     st1 = res1.state
 
     with full_f32_matmul(), phase("solver.kkt64"):
-        # ---- one f64 KKT-residual evaluation at the stage-1 point --------
-        st64 = _cast_state(st1, f64)
-        pp64 = prepare_problem(tree64, prob64, B, f64)
-        d0_v, d0_nu, fdpa_hat = kkt_residual(tree64, pp64, st64)
-
-        Av_hat = torch.stack(
-            [bsp.mv(pp64.A[k], st64.vis[c])
-             for k, c in enumerate(prob64.constraint_links)]
-        )                                                     # (NC,6,B)
-        b_d = pp64.b - Av_hat
-        lb_d = pp64.lb - st64.nu                              # padded slots: 0-0
-        ub_d = pp64.ub - st64.nu
-
-        # original-problem adaptive-tolerance scales (CheckConvergence,
-        # loik-loid-optimized.hxx:540-565) as (B,) floors for the delta stage
-        Href_vhat = bsp.mv(pp64.H_ref, st64.vis)
-        scale_p = torch.maximum(
-            torch.maximum(bsp.inf_norm_b(Av_hat), bsp.inf_norm_b(st64.nu)),
-            pp64.b_inf,
-        )
-        scale_d = torch.maximum(
-            torch.maximum(bsp.inf_norm_b(Href_vhat), pp64.Hv_inf),
-            torch.maximum(bsp.inf_norm_b(fdpa_hat), bsp.inf_norm_b(d0_nu)),
-        )
-
-        # ---- the f32 delta problem ---------------------------------------
-        pp32 = prepare_problem(tree32, prob32, B, f32)
-        if tree32.has_batched_geometry:
+        if tree32.has_batched_geometry and pp32.S_all is None:
             # batched geometry (mixed super-batch): precompute per-problem
             # subspaces once; both the fused stage-2 kernel and the eager
             # loop consume them as data
             from ..kernels.fused import with_S_all
 
             pp32 = with_S_all(tree32, pp32, f32)
-        prob_d = dataclasses.replace(
-            pp32,
-            Hv=(-d0_v).to(f32),
-            Hv_inf=bsp.inf_norm_b(d0_v).to(f32),
-            b=b_d.to(f32),
-            Atb=bsp.mtv(pp64.A, b_d).to(f32),
-            b_inf=bsp.inf_norm_b(b_d).to(f32),
-            lb=lb_d.to(f32),
-            ub=ub_d.to(f32),
-            r_offset=d0_nu.to(f32),
-            tol_scale_primal=scale_p.to(f32),
-            tol_scale_dual=scale_d.to(f32),
-        )
+        # ---- one f64 KKT-residual evaluation at the stage-1 point, the f32
+        # delta problem and the delta state: one launch on the card --------
+        from ..kernels import kkt64
 
-        # ---- delta state: dx = 0, duals dy = 0, z = z_hat - nu_hat -------
-        zero = {n: torch.zeros_like(getattr(st1, n)) for n in
-                ("vis", "fis", "nu", "w", "yis", "Aty", "fdpa", "stfw")}
-        st_d = dataclasses.replace(st1, z=st1.z - st1.nu, **zero)
+        step = kkt64.kkt64_step if kkt64.on_kernel(tree, problem, st1) else _kkt64_plain
+        prob_d, st_d, fdpa_hat = step(tree, problem, pp32, st1)
         with phase("solver.reset"):
             st_d = _reset_state(tree32, p2, st_d, f32)
 
@@ -255,7 +221,7 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
             w=st1.w + st2.w,
             yis=st1.yis + st2.yis,
             Aty=st1.Aty + st2.Aty,
-            fdpa=st2.fdpa + fdpa_hat.to(f32),
+            fdpa=st2.fdpa + fdpa_hat,
         )
         return SolveResult(
             nu=_flat_nu(tree32, st2.nu) + nu_hat,
@@ -270,6 +236,63 @@ def _delta_duals(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
             dual_residual=st2.dual_residual,
             state=st_full,
         )
+
+
+def _kkt64_plain(tree, problem: IkProblem, prob32: PreparedProblem, st1: SolverState):
+    """The float64 KKT step of `_delta_duals` in plain PyTorch: the KKT
+    residual at the stage-1 point ``st1`` in float64, the original
+    problem's adaptive-tolerance scales, the float32 delta problem (the
+    rest of ``prob32``, stage 1's prepared problem, kept) and the delta
+    state.  Returns ``(prob_d, st_d, fdpa_hat)``.  The CPU runs it; on the
+    card one launch of `kernels.kkt64.kkt64_step` takes its place, equal to
+    it in every bit, whose backward runs it again for the gradient."""
+    f32, f64 = torch.float32, torch.float64
+    tree64, prob64 = tree.astype(f64), _cast_problem(problem, f64)
+    B = st1.vis.shape[-1]
+    st64 = _cast_state(st1, f64)
+    pp64 = prepare_problem(tree64, prob64, B, f64)
+    d0_v, d0_nu, fdpa_hat = kkt_residual(tree64, pp64, st64)
+
+    Av_hat = torch.stack(
+        [bsp.mv(pp64.A[k], st64.vis[c])
+         for k, c in enumerate(prob64.constraint_links)]
+    )                                                         # (NC,6,B)
+    b_d = pp64.b - Av_hat
+    lb_d = pp64.lb - st64.nu                                  # padded slots: 0-0
+    ub_d = pp64.ub - st64.nu
+
+    # original-problem adaptive-tolerance scales (CheckConvergence,
+    # loik-loid-optimized.hxx:540-565) as (B,) floors for the delta stage
+    Href_vhat = bsp.mv(pp64.H_ref, st64.vis)
+    scale_p = torch.maximum(
+        torch.maximum(bsp.inf_norm_b(Av_hat), bsp.inf_norm_b(st64.nu)),
+        pp64.b_inf,
+    )
+    scale_d = torch.maximum(
+        torch.maximum(bsp.inf_norm_b(Href_vhat), pp64.Hv_inf),
+        torch.maximum(bsp.inf_norm_b(fdpa_hat), bsp.inf_norm_b(d0_nu)),
+    )
+
+    # ---- the f32 delta problem -------------------------------------------
+    prob_d = dataclasses.replace(
+        prob32,
+        Hv=(-d0_v).to(f32),
+        Hv_inf=bsp.inf_norm_b(d0_v).to(f32),
+        b=b_d.to(f32),
+        Atb=bsp.mtv(pp64.A, b_d).to(f32),
+        b_inf=bsp.inf_norm_b(b_d).to(f32),
+        lb=lb_d.to(f32),
+        ub=ub_d.to(f32),
+        r_offset=d0_nu.to(f32),
+        tol_scale_primal=scale_p.to(f32),
+        tol_scale_dual=scale_d.to(f32),
+    )
+
+    # ---- delta state: dx = 0, duals dy = 0, z = z_hat - nu_hat -----------
+    zero = {n: torch.zeros_like(getattr(st1, n)) for n in
+            ("vis", "fis", "nu", "w", "yis", "Aty", "fdpa", "stfw")}
+    st_d = dataclasses.replace(st1, z=st1.z - st1.nu, **zero)
+    return prob_d, st_d, fdpa_hat.to(f32)
 
 
 def solve_two_stage(

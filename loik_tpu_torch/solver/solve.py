@@ -708,7 +708,7 @@ def _as_batch(tree, q) -> torch.Tensor:
 
 def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
                 warm_state: Optional[SolverState], loop=_solve_loop,
-                liMi=None, tol_scales=None) -> SolveResult:
+                liMi=None, tol_scales=None, with_problem=False):
     """FK, prepare, reset, then ``loop`` (the eager loop here; the fused
     kernel's wrapper in `kernels/fused.py`) on the trailing-batch state.
 
@@ -719,6 +719,10 @@ def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
     tol_scales: ``(primal, dual)`` (B,) floors of the adaptive-tolerance
     scales, the ORIGINAL problem's, for a solve of a delta problem
     (`refine.solve_delta_refined`).
+
+    with_problem: return ``(result, prepared problem)``, the problem as
+    `prepare_problem` made it, for a caller that builds on it
+    (`refine._delta_duals`).
 
     Its phases (`utils.observability.phase`): ``solver.fk``,
     ``solver.prepare``, ``solver.reset``, ``solver.loop``,
@@ -760,7 +764,8 @@ def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
     if params.verbose:
         _announce(st)
     with phase("solver.result"):
-        return _result(tree, st)
+        res = _result(tree, st)
+    return (res, prob) if with_problem else res
 
 
 def solve_from_fk(tree, params: SolverParams, liMi_R, liMi_p,

@@ -54,7 +54,8 @@ record which of the graph's nodes each phase recorded
 - ``solver.loop``: the fused kernel's launch or the WHILE node, each stage
   (`_solve_impl`, `refine._delta_duals`).
 - ``solver.kkt64``: `refine._delta_duals`' float64 KKT evaluation, scales,
-  delta problem and delta state.
+  delta problem and delta state: on the card one launch of the KKT64
+  kernel (`kernels.kkt64`), one node of a graph.
 - ``solver.result``: `solve._result` and the refine bodies'
   recombination.
 
@@ -67,9 +68,10 @@ and their split by phase);
 kernel the launches a replay makes), `kernels._build.BUILDS` and
 `graphs.body_executions()`; and `kernel_counts()`, which reads the launches
 of every hand-written kernel (`kernels.common`: ``fused_admm``, counted in
-`kernels.fused._launch` as `kernels.fused.LAUNCHES`, and ``fk_limi``, in
-`kernels.fk.fk_limi` as `kernels.fk.FK_LAUNCHES`; both with every replay of
-a graph that recorded them, added by `utils.graphs`) and
+`kernels.fused._launch` as `kernels.fused.LAUNCHES`, ``fk_limi``, in
+`kernels.fk.fk_limi` as `kernels.fk.FK_LAUNCHES`, and ``kkt64``, in
+`kernels.kkt64.kkt64_step` as `kernels.kkt64.KKT64_LAUNCHES`; each with
+every replay of a graph that recorded it, added by `utils.graphs`) and
 `kernels.fk.PLAIN_CALLS` (per reason, the calls of
 `solver.solve.fwd_pass_init` on CUDA tensors that took the plain FK,
 counted in `kernels.fk.on_kernel`).
@@ -157,9 +159,9 @@ def phase(name: str):
 
 def kernel_counts() -> dict:
     """The kernels' counters (the module docstring says where they sit):
-    ``launches`` (kernel name -> launches) and ``fk_plain_calls`` (reason
-    -> calls)."""
-    from ..kernels import common, fk, fused  # noqa: F401  (each registers its count)
+    ``launches`` (kernel name -> launches: ``fused_admm``, ``fk_limi``,
+    ``kkt64``) and ``fk_plain_calls`` (reason -> calls)."""
+    from ..kernels import common, fk, fused, kkt64  # noqa: F401  (each registers its count)
 
     return {"launches": {name: c.count() for name, c in common.KERNELS.items()},
             "fk_plain_calls": dict(fk.PLAIN_CALLS)}

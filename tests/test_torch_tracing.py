@@ -171,7 +171,9 @@ def test_capture_phases_cover_the_nodes_and_add_none(entry, monkeypatch, fake_gr
     assert cap.phases[0][1] == 0 and cap.phases[-1][2] == cap.nodes
     assert all(a[2] == b[1] and a[1] < a[2] for a, b in zip(cap.phases, cap.phases[1:]))
     assert None not in names
-    assert set(names) == set(PHASES[entry])
+    # a float32 call's casts are no-ops: its cast phase records no node (the
+    # float64 casts of the refined solve's plain KKT step are that phase's)
+    assert set(names) == set(PHASES[entry]) - {"solver.cast"}
 
     # the same capture with every phase a plain null context
     graphs.clear_graphs()
