@@ -95,23 +95,16 @@ class _FkArgs(ctypes.Structure):
 
 # csrc/fk.cu's words a joint in the topology table
 _WORDS = 7
-# (topology, device) -> its table: one tensor per topology, so that a graph
-# that takes another tree of its topology recomputes its tree's table
-# (`model.tree.refresh_derived`) as a copy of the tensor onto itself, which
-# runs nothing, instead of a copy from the host, which would wait for the card
-_TABLES: dict = {}
 
 
 def _topology(tree) -> torch.Tensor:
     """The kernel's (N, 7) int64 topology table on the tree's device: per
     joint its type, first q index, a mimic pair's master and mimic types,
     and the float64 bits of its helical pitch and mimic multiplier and
-    offset (0.0 where it has none).  One tensor per topology and device."""
-    key = (tree.jtypes, tree.idx_q, tree.pitches, tree.mimic, tree.device)
-    table = _TABLES.get(key)
-    if table is None:
-        table = _TABLES.setdefault(key, _table(tree))
-    return table
+    offset (0.0 where it has none).  One tensor per topology and device
+    (`common.table`)."""
+    return common.table("fk_limi", (tree.jtypes, tree.idx_q, tree.pitches, tree.mimic,
+                                    tree.device), lambda: _table(tree))
 
 
 def _table(tree) -> torch.Tensor:
@@ -129,31 +122,12 @@ def _table(tree) -> torch.Tensor:
     return torch.as_tensor(rows, device=tree.device)
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the kernel's C signatures on a library and check its layout
-    against this wrapper."""
-    for name in ("loik_fk_limi_f32", "loik_fk_limi_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(_FkArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.loik_fk_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.loik_fk_abi.restype = None
-    abi = [ctypes.c_int() for _ in range(2)]
-    lib.loik_fk_abi(*[ctypes.byref(x) for x in abi])
-    want = (ctypes.sizeof(_FkArgs), _WORDS)
-    if tuple(x.value for x in abi) != want:
-        raise RuntimeError(
-            f"FK kernel layout {tuple(x.value for x in abi)} (argument bytes, "
-            f"topology words) does not match the wrapper's {want}")
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built kernel library (`_build.load`), its FK functions bound."""
-    from . import _build
-
-    return _bind(_build.load())
+_FUNCTIONS = dict.fromkeys(("loik_fk_limi_f32", "loik_fk_limi_f64"),
+                           [ctypes.POINTER(_FkArgs), ctypes.c_void_p])
+_LAYOUT = {"argument bytes": ctypes.sizeof(_FkArgs), "topology words": _WORDS}
+# binds a library: its C signatures declared, its layout checked
+_bind = functools.partial(common.bind, kernel="FK kernel", functions=_FUNCTIONS,
+                          abi="loik_fk_abi", layout=_LAYOUT)
 
 
 def _leaf(x: Optional[torch.Tensor], base_ndim: int, q: torch.Tensor, name: str) -> _FkLeaf:
@@ -183,9 +157,8 @@ def fk_limi(tree, q: torch.Tensor, lib: Optional[ctypes.CDLL] = None):
     stream of q's card.
 
     ``lib``: a host build of `csrc/fk.cu` bound with `_bind`, for a
-    rehearsal on CPU tensors (tests/test_torch_fk_kernel.py); it runs in
-    the call and is not counted.  Raises for an input the kernel does not
-    take."""
+    rehearsal on CPU tensors (`common.launch`).  Raises for an input the
+    kernel does not take."""
     dtype, dev = q.dtype, q.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"FK kernel takes float32 or float64, got q in {dtype}")
@@ -198,29 +171,14 @@ def fk_limi(tree, q: torch.Tensor, lib: Optional[ctypes.CDLL] = None):
     B, N = q.shape[0], tree.njoints
     R = torch.empty((N, 3, 3, B), dtype=dtype, device=dev)
     p = torch.empty((N, 3, B), dtype=dtype, device=dev)
-    rehearsal = lib is not None
-    if not rehearsal:
-        lib = _library()
     topo = mtree.derived(tree, ("fk_topology",), _topology)
     leaves = [_leaf(getattr(tree, f), 3 if f.endswith("_R") else 2, q, f)
               for f in _GEOMETRY]
     args = _FkArgs(B, N, topo.data_ptr(), q.data_ptr(), q.stride(0), q.stride(1),
                    *leaves, R.data_ptr(), p.data_ptr())
-    fn = lib.loik_fk_limi_f32 if dtype == torch.float32 else lib.loik_fk_limi_f64
-    capturing = False
-    if rehearsal:
-        err = fn(ctypes.byref(args), None)
-    else:
-        with torch.cuda.device(dev):
-            capturing = torch.cuda.is_current_stream_capturing()
-            err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"FK kernel launch failed: {common.cuda_error(err)}")
-    if common.CHECK_NANS and not rehearsal:
-        # `utils.debug_nans`: no dispatch mode sees the kernel's writes
-        for name, x in (("liMi_R", R), ("liMi_p", p)):
-            if bool(x.isnan().any()):
-                raise FloatingPointError(f"debug_nans: NaN in the FK kernel's output {name}")
-    if not rehearsal:
-        COUNTER.launched(capturing)
+    fn = getattr(lib or common.library(_bind),
+                 "loik_fk_limi_f32" if dtype == torch.float32 else "loik_fk_limi_f64")
+    common.launch(fn, (ctypes.byref(args),), dev, COUNTER, "FK kernel", lib)
+    if common.CHECK_NANS and lib is None:
+        common.check_nans("FK kernel", (("liMi_R", R), ("liMi_p", p)))
     return R, p

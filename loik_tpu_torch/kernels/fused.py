@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import warnings
 from typing import Optional
 
@@ -125,39 +126,21 @@ class _LoikConfig(ctypes.Structure):
 
 _LAUNCH_ARGTYPES = [ctypes.POINTER(_LoikConfig), ctypes.POINTER(ctypes.c_void_p),
                     ctypes.c_int, ctypes.c_void_p]
+_FUNCTIONS = {
+    "loik_fused_admm_f32": _LAUNCH_ARGTYPES, "loik_fused_admm_f64": _LAUNCH_ARGTYPES,
+    "loik_fused_admm_frame": [ctypes.POINTER(_LoikConfig), ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
+}
+_LAYOUT = {
+    "max joints": MAX_JOINTS, "max dofs": MAX_NV, "max constraints": MAX_CONSTRAINTS,
+    "one-dof chain joints": SMALL_JOINTS, "pointers": _N_PTRS,
+    "config bytes": ctypes.sizeof(_LoikConfig), "lanes": LANES, "shared bytes": MAX_SMEM_BYTES,
+}
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library, bound and checked (`_bind`)."""
-    from . import _build
-
-    return _bind(_build.load())
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a kernel library and check its
-    compile-time layout against this wrapper."""
-    for name in ("loik_fused_admm_f32", "loik_fused_admm_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = _LAUNCH_ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.loik_fused_admm_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 8
-    lib.loik_fused_admm_abi.restype = None
-    lib.loik_fused_admm_frame.argtypes = [
-        ctypes.POINTER(_LoikConfig), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.loik_fused_admm_frame.restype = ctypes.c_int
-    abi = [ctypes.c_int() for _ in range(8)]
-    lib.loik_fused_admm_abi(*[ctypes.byref(x) for x in abi])
-    want = (MAX_JOINTS, MAX_NV, MAX_CONSTRAINTS, SMALL_JOINTS, _N_PTRS,
-            ctypes.sizeof(_LoikConfig), LANES, MAX_SMEM_BYTES)
-    if tuple(x.value for x in abi) != want:
-        raise RuntimeError(
-            f"kernel library layout {tuple(x.value for x in abi)} (max joints, "
-            f"max dofs, max constraints, one-dof chain joints, pointers, config "
-            f"bytes, lanes, shared bytes) does not match the wrapper's {want}"
-        )
-    return lib
+# binds a library: its C signatures declared, its layout checked
+_bind = functools.partial(common.bind, kernel="fused ADMM kernel", functions=_FUNCTIONS,
+                          abi="loik_fused_admm_abi", layout=_LAYOUT)
 
 
 def frame_words(nvs, num_constraints: int, per_problem_S: bool = False):
@@ -329,10 +312,8 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
             lib: Optional[ctypes.CDLL] = None) -> SolverState:
     """Launch the kernel on clones of the state; returns the final state.
 
-    ``lib``: a host build of the kernel source bound with `_bind`, for a
-    rehearsal on CPU tensors (tools/rehearse_kernel.py); it runs in the call
-    and is not counted as a launch.  None: the CUDA library, on the current
-    stream of the tensors' device, with that device made current."""
+    ``lib``: a host build of the source bound with `_bind`, for a rehearsal
+    on CPU tensors (tools/rehearse_kernel.py; `common.launch`)."""
     dtype, dev = st.vis.dtype, st.vis.device
     B = st.vis.shape[-1]
     N, NC = tree.njoints, len(prob.constraint_links)
@@ -343,10 +324,6 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
         raise ValueError(
             f"fused kernel: one problem of this tree does not fit a block's "
             f"shared memory in {dtype} ({MAX_SMEM_BYTES} bytes)")
-    rehearsal = lib is not None
-    if not rehearsal:
-        lib = _library()
-
     def operand(name, x, want_dtype):
         if x.device != dev or x.dtype != want_dtype:
             raise ValueError(
@@ -395,23 +372,13 @@ def _launch(tree, params: SolverParams, prob: PreparedProblem,
     cfg.nvs[:N] = tree.nvs
     cfg.clinks[:NC] = prob.constraint_links
 
-    fn = lib.loik_fused_admm_f32 if dtype == torch.float32 else lib.loik_fused_admm_f64
-    capturing = False
-    if rehearsal:
-        err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(0))
-    else:
-        # the C side sets the kernel's shared-memory limit and launches on
-        # the CURRENT device: make the tensors' card current for the call.
-        # Under a CUDA graph capture the current stream is the capture's,
-        # and the launch, its config passed by value, becomes a graph node
-        with torch.cuda.device(dev):
-            capturing = torch.cuda.is_current_stream_capturing()
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(ctypes.byref(cfg), ptrs, _N_PTRS, ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"fused ADMM kernel launch failed: {common.cuda_error(err, lib)}")
-    if not rehearsal:
-        COUNTER.launched(capturing)
+    # under a CUDA graph capture the launch, its config passed by value,
+    # becomes a graph node
+    fn = getattr(lib or common.library(_bind),
+                 "loik_fused_admm_f32" if dtype == torch.float32 else "loik_fused_admm_f64")
+    common.launch(fn, (ctypes.byref(cfg), ptrs, _N_PTRS), dev, COUNTER, "fused ADMM kernel", lib)
+    if common.CHECK_NANS and lib is None:
+        common.check_nans("fused ADMM kernel", out.items())
     return dataclasses.replace(st, **out)
 
 
@@ -453,20 +420,7 @@ def fused_solve_loop(tree, params: SolverParams, prob: PreparedProblem,
         return _solve_loop(tree, prob, params, st)
     if st.vis.device.type != "cuda":
         raise ValueError(f"fused_solve_loop: no kernel for device {st.vis.device}")
-    out = _launch(tree, params, prob, st, batch_tile)
-    if common.CHECK_NANS:
-        _check_nans(out)
-    return out
-
-
-def _check_nans(st: SolverState) -> None:
-    """`utils.debug_nans`' check of a launch's output state: raises
-    FloatingPointError naming the first floating field holding a NaN."""
-    for f in dataclasses.fields(st):
-        x = getattr(st, f.name)
-        if isinstance(x, torch.Tensor) and x.is_floating_point() and bool(x.isnan().any()):
-            raise FloatingPointError(
-                f"debug_nans: NaN in the fused kernel's output field {f.name}")
+    return _launch(tree, params, prob, st, batch_tile)
 
 
 def with_S_all(tree, prob: PreparedProblem, dtype) -> PreparedProblem:

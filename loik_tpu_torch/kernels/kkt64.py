@@ -117,11 +117,6 @@ class _KktArgs(ctypes.Structure):
 
 # csrc/kkt64.cu's words a joint in the topology table
 _WORDS = 7
-# (topology, constraint links, device) -> its table: one tensor per key, so
-# that a graph that takes another tree of its topology recomputes its tree's
-# table (`model.tree.refresh_derived`) as a copy of the tensor onto itself,
-# which runs nothing, instead of a copy from the host
-_TABLES: dict = {}
 
 
 def _topology(tree, links) -> torch.Tensor:
@@ -131,12 +126,10 @@ def _topology(tree, links) -> torch.Tensor:
     (-1: none) and the float64 bits of its helical pitch (0.0 where it has
     none); then the child list, each joint's children in descending index
     order (the order `solve.kkt_residual` adds them), N words; then the
-    constraints' links.  One tensor per key."""
-    key = (tree.jtypes, tree.parents, tree.nvs, tree.pitches, links, tree.device)
-    table = _TABLES.get(key)
-    if table is None:
-        table = _TABLES.setdefault(key, _table(tree, links))
-    return table
+    constraints' links.  One tensor per topology, links and device
+    (`common.table`)."""
+    return common.table("kkt64", (tree.jtypes, tree.parents, tree.nvs, tree.pitches, links,
+                                  tree.device), lambda: _table(tree, links))
 
 
 def _table(tree, links) -> torch.Tensor:
@@ -160,29 +153,12 @@ def _table(tree, links) -> torch.Tensor:
     return torch.as_tensor(table, device=tree.device)
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the kernel's C signature on a library and check its layout
-    against this wrapper."""
-    lib.loik_kkt64.argtypes = [ctypes.POINTER(_KktArgs), ctypes.c_void_p]
-    lib.loik_kkt64.restype = ctypes.c_int
-    lib.loik_kkt64_abi.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-    lib.loik_kkt64_abi.restype = None
-    abi = [ctypes.c_int() for _ in range(3)]
-    lib.loik_kkt64_abi(*[ctypes.byref(x) for x in abi])
-    want = (ctypes.sizeof(_KktArgs), _WORDS, len(_OUTPUTS))
-    if tuple(x.value for x in abi) != want:
-        raise RuntimeError(
-            f"KKT64 kernel layout {tuple(x.value for x in abi)} (argument bytes, "
-            f"topology words, outputs) does not match the wrapper's {want}")
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built kernel library (`_build.load`), its KKT64 function bound."""
-    from . import _build
-
-    return _bind(_build.load())
+_FUNCTIONS = {"loik_kkt64": [ctypes.POINTER(_KktArgs), ctypes.c_void_p]}
+_LAYOUT = {"argument bytes": ctypes.sizeof(_KktArgs), "topology words": _WORDS,
+           "outputs": len(_OUTPUTS)}
+# binds a library: its C signature declared, its layout checked
+_bind = functools.partial(common.bind, kernel="KKT64 kernel", functions=_FUNCTIONS,
+                          abi="loik_kkt64_abi", layout=_LAYOUT)
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -231,9 +207,8 @@ def kkt64_step(tree, problem, prob32, st, lib: Optional[ctypes.CDLL] = None):
     (`needs_grad`: the launch is then `_Step`'s forward).
 
     ``lib``: a host build of `csrc/kkt64.cu` bound with `_bind`, for a
-    rehearsal on CPU tensors (tests/test_torch_kkt64_kernel.py); it runs in
-    the call and is not counted.  Raises for an input the kernel does not
-    take."""
+    rehearsal on CPU tensors (`common.launch`).  Raises for an input the
+    kernel does not take."""
     if tree.has_q_dependent_S:
         raise ValueError("KKT64 kernel: the tree has configuration-dependent motion subspaces")
     for f in _STATE:
@@ -272,9 +247,6 @@ def _launch(tree, problem, st, lib) -> torch.Tensor:
     NC = len(links)
     words = [{"N6": N * 6, "NK": N * K, "C6": NC * 6, "": 1}[s] * B for _, s in _OUTPUTS]
     buf = torch.empty((sum(words),), dtype=torch.float32, device=dev)
-    rehearsal = lib is not None
-    if not rehearsal:
-        lib = _library()
     topo = mtree.derived(tree, ("kkt64_topology", links), lambda t: _topology(t, links))
     leaves = [_leaf(getattr(st, f), getattr(st, f).ndim - 1, B, dev, f) for f in _STATE]
     pleaves = [_wide(getattr(problem, f)) for f in _PROBLEM]
@@ -285,22 +257,10 @@ def _launch(tree, problem, st, lib) -> torch.Tensor:
     at = [buf.data_ptr() + 4 * sum(words[:o]) for o in range(len(words))]
     ptrs = (ctypes.c_void_p * len(_OUTPUTS))(*at)
     args = _KktArgs(B, N, K, NC, topo.data_ptr(), *leaves, ptrs)
-    capturing = False
-    if rehearsal:
-        err = lib.loik_kkt64(ctypes.byref(args), None)
-    else:
-        with torch.cuda.device(dev):
-            capturing = torch.cuda.is_current_stream_capturing()
-            err = lib.loik_kkt64(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"KKT64 kernel launch failed: {common.cuda_error(err)}")
-    if common.CHECK_NANS and not rehearsal and bool(buf.isnan().any()):
-        # `utils.debug_nans`: no dispatch mode sees the kernel's writes
-        out = _unpack(buf, N, K, NC, B)
-        bad = next(name for name, _ in _OUTPUTS if bool(out[name].isnan().any()))
-        raise FloatingPointError(f"debug_nans: NaN in the KKT64 kernel's output {bad}")
-    if not rehearsal:
-        COUNTER.launched(capturing)
+    common.launch((lib or common.library(_bind)).loik_kkt64, (ctypes.byref(args),), dev,
+                  COUNTER, "KKT64 kernel", lib)
+    if common.CHECK_NANS and lib is None:
+        common.check_nans("KKT64 kernel", _unpack(buf, N, K, NC, B).items())
     return buf
 
 

@@ -108,6 +108,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from ..kernels import common
 from ..model.tree import KinematicTree, refresh_derived
 from .observability import profiling, span
 
@@ -516,8 +517,6 @@ def _graph_device(device: torch.device) -> bool:
 
 
 def _graphable(leaves) -> bool:
-    from ..kernels import common
-
     if _DISABLED or common.CHECK_NANS or getattr(_INSIDE, "active", False) or capturing():
         return False
     if not leaves or not _graph_device(leaves[0].device):
@@ -612,8 +611,6 @@ def _captured(tag, device, warm_fn, fn, static_bytes, owner, generators=()):
     the graph lives until ``owner``, the call that replays it, is gone
     (`_GRAPHS`).  Returns (the warm-up's outputs, replay, the captured
     call's outputs, per kernel the launches a replay makes)."""
-    from ..kernels import common
-
     t0 = time.perf_counter()
     with inline():
         warm = _warm_up(device, warm_fn)
@@ -773,34 +770,24 @@ def while_loop(cond: Callable, body: Callable, carry):
     return carry
 
 
-@functools.lru_cache(maxsize=None)
-def _while_library():
-    """The kernel library with the WHILE node's C functions declared."""
-    from ..kernels import _build
-
-    lib = _build.load()
-    lib.loik_while_prepare.argtypes = []
-    lib.loik_while_begin.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.loik_while_end.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.loik_while_abort.argtypes = [ctypes.c_void_p]
-    lib.loik_capture_nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.loik_capture_graph.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
-    lib.loik_graph_nodes.argtypes = [
-        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_size_t,
-        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t)]
-    for name in ("loik_while_prepare", "loik_while_begin", "loik_while_end",
-                 "loik_while_abort", "loik_capture_nodes", "loik_capture_graph",
-                 "loik_graph_nodes"):
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+_VP, _U64P, _SIZEP = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong),
+                      ctypes.POINTER(ctypes.c_size_t))
+# the WHILE node's C functions (csrc/graph_while.cu)
+_WHILE_FUNCTIONS = {
+    "loik_while_prepare": [],
+    "loik_while_begin": [_VP, _VP, _VP, ctypes.c_int, _U64P],
+    "loik_while_end": [_VP, ctypes.c_ulonglong, _VP, _VP, _U64P],
+    "loik_while_abort": [_VP],
+    "loik_capture_nodes": [_VP, _U64P],
+    "loik_capture_graph": [_VP, ctypes.POINTER(_VP)],
+    "loik_graph_nodes": [_VP, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+                         ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_size_t,
+                         _SIZEP, _SIZEP],
+}
+_declare_while = functools.partial(common.declare, functions=_WHILE_FUNCTIONS)
 
 
 def _check(lib, err, what):
-    from ..kernels import common
-
     if err:
         raise RuntimeError(f"while_loop: {what} failed: {common.cuda_error(err, lib)}")
 
@@ -810,7 +797,7 @@ def _prepare(device) -> None:
     kernel's module loaded, the trip counter and the body stream made."""
     if device.type != "cuda":
         return
-    lib = _while_library()
+    lib = common.library(_declare_while)
     with torch.cuda.device(device):
         _check(lib, lib.loik_while_prepare(), "loading the condition kernel")
     _trips(device)
@@ -829,7 +816,7 @@ def _capture_nodes(stream) -> int:
     """Nodes of the graph being captured on ``stream`` (0 off the card)."""
     if not isinstance(stream, torch.cuda.Stream):
         return 0
-    lib = _while_library()
+    lib = common.library(_declare_while)
     n = ctypes.c_ulonglong()
     _check(lib, lib.loik_capture_nodes(stream.cuda_stream, ctypes.byref(n)),
            "counting the graph's nodes")
@@ -869,9 +856,7 @@ def _list_nodes_cuda(graph) -> tuple:
     "" for another node); and whether the nodes form one chain in that
     order, as a capture on one stream records them (a replay then runs
     them in it)."""
-    from ..kernels import common
-
-    lib = _while_library()
+    lib = common.library(_declare_while)
     n_max, cap = 4096, 1 << 20
     while True:
         types, chained = (ctypes.c_int * n_max)(), (ctypes.c_int * n_max)()
@@ -940,7 +925,7 @@ def _while_node_cuda(device, pred: torch.Tensor, step: Callable, trips: torch.Te
     adds one to ``trips`` (an int64 on the device).  The body's allocations
     come from a private pool of their own that lives as long as the graph.
     Returns the body graph's nodes and the body graph (`Loop.body`)."""
-    lib = _while_library()
+    lib = common.library(_declare_while)
     idx, pool = _INSIDE.body_pool
     if pool is None:
         # torch routes to the graph's pool only what its own capture
@@ -1021,7 +1006,56 @@ def _bytes(leaves) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
-class _Call:
+class _Replayed:
+    """A graph captured on static buffers and replayed on a call's inputs:
+    the timed replay that `_Call` and `_Scan` share.  The subclass captures
+    in ``__init__``; ``zeroed``: its device counters, zeroed at copy-in."""
+
+    rng = None
+    numbers = ()
+    zeroed = ()
+
+    def __init__(self, tag, leaves, replays):
+        self.lock = threading.Lock()
+        self.tag, self.replays = tag, replays
+        self.static = _static(leaves)
+
+    def __call__(self, leaves, trees=(), generator=None, numbers=(), start=None):
+        """``replays`` replays of the graph on ``leaves``; ``start``: the
+        host clock (`time.perf_counter_ns`) when the call's key began
+        (`copy_stats`; None: the call is not timed)."""
+        tag = self.tag
+        clock = [start, time.perf_counter_ns()]
+        with self.lock:
+            with span("graphs.copy_in", tag):
+                held = self.trees.copy_in(self.static, leaves, trees)
+                for buf, (_, host) in zip(self.numbers, numbers):
+                    try:
+                        buf.copy_(host, non_blocking=True)
+                    except RuntimeError as e:
+                        raise _copy_failed(tag, buf.device, e) from e
+                if self.rng is not None:
+                    # the replay draws from the graph's generator at the
+                    # caller's seed and offset, and hands the advanced offset back
+                    self.rng.set_state(generator.get_state())
+                for t in self.zeroed:
+                    t.zero_()
+            clock.append(time.perf_counter_ns())
+            with span("graphs.replay", tag):
+                for _ in range(self.replays):
+                    self.replay()
+            clock.append(time.perf_counter_ns())
+            with span("graphs.clone_out", tag):
+                if self.rng is not None:
+                    generator.set_state(self.rng.get_state())
+                common.replayed(self.launches, self.replays)
+                out = _unflatten(self.out_spec, iter(_fresh(self.out)))
+            clock.append(time.perf_counter_ns())
+            _count_copies(tag, self.replays, self.in_bytes - held, self.out_bytes, clock)
+            return out
+
+
+class _Call(_Replayed):
     """A captured call of ``body`` on static copies of its inputs, the
     trees among them (``trees``, `_flatten`'s) rebuilt on those copies
     (`_Trees`).  The call that captures it is answered by the warm-up
@@ -1032,9 +1066,7 @@ class _Call:
     one static buffer per dtype, whose 0-d views are their inputs."""
 
     def __init__(self, tag, body, spec, leaves, trees=(), generator=None, numbers=()):
-        self.lock = threading.Lock()
-        self.tag = tag
-        self.static = _static(leaves)
+        super().__init__(tag, leaves, 1)
         self.numbers = []
         for pos, _ in numbers:
             buf = torch.stack([self.static[i] for i in pos])
@@ -1067,39 +1099,6 @@ class _Call:
         warm_leaves: list = []
         _flatten(warm, warm_leaves)
         self.first = _unflatten(self.out_spec, iter(_fresh(warm_leaves)))
-
-    def __call__(self, leaves, trees=(), generator=None, numbers=(), start=None):
-        """A replay of the graph on ``leaves``; ``start``: the host clock
-        (`time.perf_counter_ns`) when the call's key began (`copy_stats`;
-        None: the call is not timed)."""
-        from ..kernels import common
-
-        tag = self.tag
-        clock = [start, time.perf_counter_ns()]
-        with self.lock:
-            with span("graphs.copy_in", tag):
-                held = self.trees.copy_in(self.static, leaves, trees)
-                for buf, (_, host) in zip(self.numbers, numbers):
-                    try:
-                        buf.copy_(host, non_blocking=True)
-                    except RuntimeError as e:
-                        raise _copy_failed(tag, buf.device, e) from e
-                if self.rng is not None:
-                    # the replay draws from the graph's generator at the
-                    # caller's seed and offset, and hands the advanced offset back
-                    self.rng.set_state(generator.get_state())
-            clock.append(time.perf_counter_ns())
-            with span("graphs.replay", tag):
-                self.replay()
-            clock.append(time.perf_counter_ns())
-            with span("graphs.clone_out", tag):
-                if self.rng is not None:
-                    generator.set_state(self.rng.get_state())
-                common.replayed(self.launches, 1)
-                out = _unflatten(self.out_spec, iter(_fresh(self.out)))
-            clock.append(time.perf_counter_ns())
-            _count_copies(tag, 1, self.in_bytes - held, self.out_bytes, clock)
-            return out
 
 
 def run(tag: str, tree, statics: tuple, body: Callable, args: tuple,
@@ -1340,23 +1339,22 @@ def _stack(ys):
     return _unflatten(spec, iter([torch.stack(col) for col in zip(*cols)]))
 
 
-class _Scan:
+class _Scan(_Replayed):
     """One tick captured on static buffers, replayed ``length`` times; the
     tree rebuilt on its buffers (`_Trees`)."""
 
     def __init__(self, tag, tick, spec, leaves, trees, length):
-        self.lock = threading.Lock()
-        self.tag, self.length = tag, length
-        self.static = _static(leaves)
+        super().__init__(tag, leaves, length)
+        self.in_bytes = _bytes(self.static)
         made: list = []
         tree, carry, xs, consts = _unflatten(spec, iter(self.static), made)
         self.trees = _Trees(tag, trees, made, self.static)
         carry_leaves: list = []
         carry_spec = _flatten(carry, carry_leaves)
-        self.carry_spec, self.carry = carry_spec, carry_leaves
         dev = leaves[0].device
         # the tick counter lives on the device: the graph indexes xs with it
         self.t = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.zeroed = (self.t,)
         self.ys = None
 
         def step():
@@ -1384,32 +1382,10 @@ class _Scan:
                 dst.copy_(src)
             self.t.add_(1)
 
-        _, self.replay, _, self.launches = _captured(tag, dev, step, step,
-                                                     _bytes(self.static), self)
-        self.out_bytes = _bytes({id(t): t for t in self.carry + self.ys}.values())
-
-    def __call__(self, leaves, trees, start=None):
-        """The ticks replayed on ``leaves``; ``start`` as `_Call`'s."""
-        from ..kernels import common
-
-        tag = self.tag
-        clock = [start, time.perf_counter_ns()]
-        with self.lock:
-            with span("graphs.copy_in", tag):
-                held = self.trees.copy_in(self.static, leaves, trees)
-                self.t.zero_()
-            clock.append(time.perf_counter_ns())
-            with span("graphs.replay", tag):
-                for _ in range(self.length):
-                    self.replay()
-            clock.append(time.perf_counter_ns())
-            with span("graphs.clone_out", tag):
-                common.replayed(self.launches, self.length)
-                out = (_unflatten(self.carry_spec, iter(_fresh(self.carry))),
-                       _unflatten(self.y_spec, iter(_fresh(self.ys))))
-            clock.append(time.perf_counter_ns())
-            _count_copies(tag, self.length, _bytes(self.static) - held, self.out_bytes, clock)
-            return out
+        _, self.replay, _, self.launches = _captured(tag, dev, step, step, self.in_bytes, self)
+        # the call's result: the last carry and the outputs of every tick
+        self.out_spec, self.out = (tuple, (carry_spec, self.y_spec)), carry_leaves + self.ys
+        self.out_bytes = _bytes({id(t): t for t in self.out}.values())
 
 
 def scan(tag: str, tree, statics: tuple, tick: Callable, carry, xs, consts,
@@ -1441,4 +1417,4 @@ def scan(tag: str, tree, statics: tuple, tick: Callable, carry, xs, consts,
             carry, y = tick(tree, carry, _map(lambda x: x[t], xs), consts)
             ys.append(y)
         return carry, _stack(ys)
-    return g(leaves, trees, start)
+    return g(leaves, trees, start=start)

@@ -24,7 +24,7 @@ import torch
 import chip_smoke
 import loik_tpu_torch as lt
 import loik_tpu_torch.solver.solve  # noqa: F401  (the module; the package exports a function)
-from loik_tpu_torch.kernels import fused
+from loik_tpu_torch.kernels import common, fused
 from loik_tpu_torch.solver.state import init_state
 
 tsm = sys.modules["loik_tpu_torch.solver.solve"]
@@ -197,13 +197,11 @@ def test_rehearsed_kernel_equals_eager_loop(name):
     """The CUDA source compiled for the host (tools/rehearse_kernel.py): the
     lanes of a group phase by phase in both orders, a ragged block, a warm
     tick and the delta-duals stages, bit for bit against the eager loop."""
-    import shutil
-
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the kernel source for the host")
     sys.path.insert(0, os.path.join(os.path.dirname(chip_smoke.__file__), "tools"))
     import rehearse_kernel
 
+    if rehearse_kernel.GXX is None:
+        pytest.skip("needs g++ to compile the kernel source for the host")
     lines = []
     n = rehearse_kernel.rehearse((name,), B=8, tiles=(4, 3), log=lines.append)
     assert n == len(lines) >= 17, lines
@@ -411,7 +409,7 @@ def test_library_reports_the_wrappers_frame_on_card(name):
     import ctypes
 
     nvs, NC, s_all = _robot_nvs("panda_arm" if name == "flagship" else name)
-    lib = fused._library()
+    lib = common.library(fused._bind)
     cfg = fused._LoikConfig(B=1, N=len(nvs), NC=NC, nv_max=max(nvs), tile=1, check_interval=1)
     cfg.nvs[:len(nvs)] = nvs
     frame, block = ctypes.c_int(), ctypes.c_int()

@@ -35,8 +35,6 @@ plain step, the gradient through the kernel is the plain step's, and
 import ctypes
 import dataclasses
 import os
-import shutil
-import subprocess
 import sys
 import types
 
@@ -55,7 +53,6 @@ from test_torch_graphs import fake_graphs  # noqa: F401  (the graphs' CPU stand-
 
 tsm = sys.modules["loik_tpu_torch.solver.solve"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(ROOT, "loik_tpu_torch", "kernels", "csrc", "kkt64.cu")
 
 
 def flagship(B, dtype="float32", device="cpu", seed=0):
@@ -273,16 +270,15 @@ def test_a_replay_counts_its_kkt64_launches(fake_graphs, monkeypatch):
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/kkt64.cu compiled for the host (g++, no contraction, the stub
-    cuda_runtime.h of tools/rehearse/), bound by the real wrapper."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    """csrc/kkt64.cu compiled for the host (tools/rehearse_kernel.py: g++, no
+    contraction, the stub cuda_runtime.h of tools/rehearse/), bound by the
+    real wrapper."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import rehearse_kernel
+
+    if rehearse_kernel.GXX is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
-    out = str(tmp_path_factory.mktemp("kkt64") / "libkkt64_rehearsal.so")
-    cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++",
-           f"-I{os.path.join(ROOT, 'tools', 'rehearse')}", "-o", out, CSRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = rehearse_kernel.build(str(tmp_path_factory.mktemp("kkt64")), "kkt64.cu")
     return kkt64._bind(ctypes.CDLL(out))
 
 

@@ -229,8 +229,10 @@ def test_debug_nans_raises_and_restores():
         with debug_nans(False):              # and can be switched off inside
             assert torch.isnan(x / x).all()
         assert common.CHECK_NANS
-        with pytest.raises(FloatingPointError, match="field mu"):
-            fused._check_nans(st)            # what a launch's output goes through
+        with pytest.raises(FloatingPointError, match="output mu"):
+            # what a launch's output goes through
+            common.check_nans("fused ADMM kernel",
+                              ((n, getattr(st, n)) for n in fused._STATE_FIELDS))
     assert not common.CHECK_NANS and not torch.is_anomaly_enabled()
     assert torch.isnan(x / x).all() and torch.equal(y, torch.ones(3))
 

@@ -36,17 +36,21 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STUB_DIR = os.path.join(ROOT, "tools", "rehearse")
 GXX_FLAGS = ("-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++")
+# the host compiler (None: no rehearsal here)
+GXX = shutil.which("g++")
 PATHS = ("panda_arm", "mixed", "solo12", "talos")
 
 
-def build(out_dir: str) -> str:
-    """Compile the kernel source for the host; returns the library's path."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def build(out_dir: str, source: str = "fused_admm.cu") -> str:
+    """Compile ``source``, a file of `loik_tpu_torch/kernels/csrc/`, for the
+    host against the stand-in `cuda_runtime.h`; returns the library's
+    path.  The tests bind it through the kernel's wrapper (`fk._bind`,
+    `kkt64._bind`) as `rehearse` binds the fused kernel's."""
+    if GXX is None:
         raise RuntimeError("rehearse_kernel: g++ not found")
-    src = os.path.join(ROOT, "loik_tpu_torch", "kernels", "csrc", "fused_admm.cu")
-    out = os.path.join(out_dir, "libloik_rehearsal.so")
-    cmd = [gxx, *GXX_FLAGS, f"-I{STUB_DIR}", "-o", out, src]
+    src = os.path.join(ROOT, "loik_tpu_torch", "kernels", "csrc", source)
+    out = os.path.join(out_dir, f"lib{os.path.splitext(source)[0]}_rehearsal.so")
+    cmd = [GXX, *GXX_FLAGS, f"-I{STUB_DIR}", "-o", out, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
